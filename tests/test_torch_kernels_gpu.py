@@ -1,0 +1,106 @@
+"""The port's CUDA kernels against their plain PyTorch versions on the card,
+at the served path's shapes and at awkward ones.  Marked ``gpu``: they skip
+without a CUDA device.
+
+The card's machine has no JAX, which ``tests/conftest.py`` imports, so this
+file imports none and runs there without the conftest:
+
+    python -m pytest tests/test_torch_kernels_gpu.py --noconftest -q
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from wssdl_bus_tpu_torch.ops.nms import nms_mask
+from wssdl_bus_tpu_torch.ops.nms_cuda import nms_keep
+from wssdl_bus_tpu_torch.ops.roi_pool_cuda import (roi_pool_fc,
+                                                   roi_pool_fc_plain,
+                                                   roi_pool_grouped)
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+def _sorted_boxes(rng, b, n, scale=800.0):
+    xy = rng.uniform(0, scale, (b, n, 2))
+    wh = rng.uniform(5, scale / 3, (b, n, 2))
+    boxes = np.concatenate([xy, xy + wh], -1).astype(np.float32)
+    return np.ascontiguousarray(boxes.transpose(0, 2, 1))   # [B, 4, N]
+
+
+@pytest.mark.parametrize("b,n,invalid", [
+    (8, 6000, 0.1),     # the served path: 8 images at the TEST budget
+    (3, 12000, 0.05),   # the TRAIN budget
+    (2, 1111, 0.3),     # N not a multiple of 64
+    (1, 1, 0.0),
+    (2, 130, 1.0),      # every box invalid
+])
+def test_nms_kernel_matches_plain(cuda, b, n, invalid):
+    rng = np.random.RandomState(n)
+    boxes = torch.from_numpy(_sorted_boxes(rng, b, n)).to(cuda)
+    valid = torch.from_numpy(rng.uniform(size=(b, n)) >= invalid).to(cuda)
+    before = nms_keep.launches
+    got = nms_keep(boxes, valid, 0.7)
+    torch.cuda.synchronize()
+    assert nms_keep.launches == before + 1
+    want = nms_mask(boxes, valid, 0.7)
+    assert torch.equal(got, want)
+    assert not (got & ~valid).any()
+
+
+def test_nms_kernel_threshold_is_inclusive(cuda):
+    boxes = torch.tensor([[[0, 0, 9, 9], [0, 0, 9, 6], [0, 0, 9, 5]]],
+                         dtype=torch.float32).transpose(1, 2).contiguous()
+    valid = torch.ones(1, 3, dtype=torch.bool)
+    got = nms_keep(boxes.to(cuda), valid.to(cuda), 0.7).cpu()
+    assert got.tolist() == [[True, False, True]]   # IoU 0.7 and 0.6
+
+
+def _rois(rng, b, p, h, w):
+    x1 = rng.uniform(-20, w * 16, (b, p))
+    y1 = rng.uniform(-20, h * 16, (b, p))
+    x2 = x1 + rng.uniform(0, 500, (b, p))
+    y2 = y1 + rng.uniform(0, 500, (b, p))
+    return np.stack([x1, y1, x2, y2], -1).astype(np.float32)
+
+
+@pytest.mark.parametrize("b,p,h,w,c", [
+    (8, 300, 38, 51, 512),   # the served path at the 608x816 canvas
+    (1, 1, 38, 51, 512),     # P = 1
+    (2, 37, 7, 9, 12),       # small map, C not a multiple of 32
+])
+@pytest.mark.parametrize("flavor", ["gpu", "cpu"])
+def test_roi_pool_kernel_matches_plain(cuda, b, p, h, w, c, flavor):
+    rng = np.random.RandomState(p)
+    feat = torch.from_numpy(rng.randn(b, h, w, c).astype(np.float32)).to(cuda)
+    rois = torch.from_numpy(_rois(rng, b, p, h, w)).to(cuda)
+    before = roi_pool_fc.launches
+    got = roi_pool_fc(feat, rois, flavor=flavor)
+    torch.cuda.synchronize()
+    assert roi_pool_fc.launches == before + 1
+    want = roi_pool_fc_plain(feat, rois, flavor=flavor)
+    assert torch.equal(got, want)
+    grouped = roi_pool_grouped(feat, rois, flavor=flavor)
+    assert grouped.shape == (b, p, 7, 7, c)
+    assert torch.equal(grouped.reshape(got.shape), want)
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    feat = torch.zeros(1, 4, 4, 6, device=cuda)
+    rois = torch.zeros(1, 2, 4, device=cuda)
+    with pytest.raises(ValueError, match="C % 4"):
+        roi_pool_fc(feat, rois)
+    with pytest.raises(ValueError, match="CUDA"):
+        roi_pool_fc(feat[..., :4].contiguous(), rois.cpu())
+    with pytest.raises(TypeError):
+        roi_pool_fc(feat[..., :4].double().contiguous(), rois.double())
+    boxes = torch.zeros(1, 4, 8, device=cuda)
+    with pytest.raises(TypeError):
+        nms_keep(boxes, torch.ones(1, 8, device=cuda), 0.7)

@@ -1,0 +1,12 @@
+"""PyTorch/CUDA port of ``wssdl_bus_tpu`` for NVIDIA Hopper (H100).
+
+The JAX package beside this one is the reference; every module here mirrors
+its counterpart's name and place and is tested against it.  The port imports
+``torch``, numpy, PIL and scipy, and nothing of JAX or of ``wssdl_bus_tpu``.
+Its two hand-written CUDA kernels (greedy NMS, ROI max-pool) live in
+``csrc/`` and are built with ``nvcc`` on first use (``ops/_build.py``).
+
+Entry points (``build_detector``, ``Engine``, ``evaluate.detect``) run on the
+CUDA device unless the caller passes ``device="cpu"``; without a card and
+without that argument they raise.
+"""
