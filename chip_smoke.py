@@ -1,27 +1,43 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving path once on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's serving and training paths on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--profile]
 
 Phases (any failure exits non-zero; nothing is caught):
   1. device line: torch's name and count, nvidia-smi's name and power limit;
-  2. build both CUDA kernels from ``wssdl_bus_tpu_torch/csrc`` with nvcc for
-     sm_90a, printing ptxas's register / shared-memory report;
-  3. each kernel against its plain PyTorch version on the card, at the
-     shapes the served path gives it (B = 8 images at the full VGG16 width
-     and the 6000/300 TEST budgets): NMS keep masks must be identical, ROI
-     pool values must differ by exactly 0; CUDA-event times of both;
+  2. build the CUDA kernels from ``wssdl_bus_tpu_torch/csrc`` with nvcc for
+     sm_90a, one nvcc per source, all started together, printing ptxas's
+     register / shared-memory report;
+  3. the NMS and ROI-pool forward kernels against their plain PyTorch
+     versions on the card, at the shapes the served path gives them (B = 8
+     images at the full VGG16 width and the 6000/300 TEST budgets): NMS
+     keep masks must be identical, ROI pool values must differ by exactly
+     0; CUDA-event times of both;
   4. the served path at full width: seeded He weights, synthetic grayscale
      ultrasound-like requests served through ``im_detect_batch`` +
      ``report_detections`` at batch 1 and batch 8, with the kernels' launch
-     counters read around the run; then the same requests with the kernels
-     swapped for their plain versions (TF32 off on both sides): keep sets and
-     detections must match; ms/image and peak device memory;
-  5. a ``{"kernels": [...]}`` line, then the last line
+     counters read around the run; ms/image and peak device memory;
+  5. the training path at full width with the default TRAIN settings (1
+     supervised + 2 weak images, RPN 12000 -> 2000 at NMS 0.7, 128 ROIs per
+     supervised image, Adam, conv1/conv2 frozen): synthetic speckle images
+     written to a temporary directory and read back by
+     ``get_minibatch_joint``; first the ROI-pool backward kernel against its
+     plain version at the step's shapes (MIL-sparse, dense and tie
+     cotangents: identical nonzero positions and values, CUDA-event
+     times), then 3 combined ``train_step``s and 1 ``train_step_mil`` with
+     the launch counters read around them: finite losses, ms/step, peak
+     memory, conv1/conv2 bitwise unchanged and every other parameter moved;
+  6. parity with TF32 off and deterministic cuDNN: the served requests and
+     one combined training step, each through the kernels and through their
+     plain versions from the same state and the same injected draws: keep
+     sets, sampled ROIs and labels identical, losses and updated
+     parameters within the tolerances printed;
+  7. a ``{"kernels": [...]}`` line, then the last line
      ``{"ok": true, "device": {...}}``.
 
-``--profile`` adds a torch.profiler breakdown of the batch-8 device step
-(device time by kernel, busy share) and a Chrome trace in chiprun_out/.
+``--profile`` adds torch.profiler breakdowns (device time by kernel, busy
+share) of the batch-8 serving step and of the combined training step, and
+their Chrome traces in chiprun_out/.
 
 Needs one CUDA card; imports nothing of JAX or of the JAX package.
 """
@@ -32,6 +48,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -45,6 +62,8 @@ F32_OPS_PER_S = 67e12
 NMS_OPS_PER_PAIR = 15       # min/max/sub/add x 2 axes, clamps, mul, union, div, compare
 BATCH_1_REQUESTS = 3
 BATCH = 8
+TRAIN_STEPS = 3           # combined steps; then one MIL step
+TRAIN_STEP = 40000        # global step: MIL scale 1 - 0.99 * 0.9^20
 
 
 def _fail(msg: str):
@@ -57,9 +76,10 @@ def _check(cond, msg: str):
         _fail(msg)
 
 
-def speckle_image(rng: np.random.RandomState, h: int, w: int) -> np.ndarray:
+def speckle_with_mass(rng: np.random.RandomState, h: int, w: int):
     """A grayscale ultrasound-like uint8 image: Rayleigh speckle over a
-    depth-attenuated background with one dark elliptical mass."""
+    depth-attenuated background with one dark elliptical mass; -> (image,
+    the mass's box (x1, y1, x2, y2))."""
     yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
     tissue = 110.0 * np.exp(-yy / (1.5 * h))
     cy, cx = rng.uniform(0.3, 0.7) * h, rng.uniform(0.3, 0.7) * w
@@ -67,7 +87,12 @@ def speckle_image(rng: np.random.RandomState, h: int, w: int) -> np.ndarray:
     mass = ((yy - cy) / ry) ** 2 + ((xx - cx) / rx) ** 2 < 1.0
     tissue[mass] *= 0.25
     speckle = rng.rayleigh(1.0, (h, w)).astype(np.float32)
-    return np.clip(tissue * speckle, 0, 255).astype(np.uint8)
+    box = np.array([cx - rx, cy - ry, cx + rx, cy + ry], np.float32)
+    return np.clip(tissue * speckle, 0, 255).astype(np.uint8), box
+
+
+def speckle_image(rng: np.random.RandomState, h: int, w: int) -> np.ndarray:
+    return speckle_with_mass(rng, h, w)[0]
 
 
 def make_requests(seed: int, n: int):
@@ -325,6 +350,297 @@ def _packed(eng, requests, net):
     return blob, infos
 
 
+# --------------------------------------------------------------------- #
+# the training path
+# --------------------------------------------------------------------- #
+def write_roidb(tmpdir: str, seed: int, n_sup: int, n_ws: int):
+    """Speckle images written as PNG files, read back by the minibatch code
+    as on the real path.  Supervised entries carry the mass box (benign or
+    malignant) and a whole-image ``__background__`` box (the SNUBH
+    negatives need one); weak entries only a BIRADS label."""
+    from PIL import Image
+
+    rng = np.random.RandomState(seed)
+    sizes = [(450, 600), (480, 640)]
+    sup, ws = [], []
+    for i in range(n_sup + n_ws):
+        h, w = sizes[i % 2]
+        im, box = speckle_with_mass(rng, h, w)
+        path = os.path.join(tmpdir, f"bus_{i}.png")
+        Image.fromarray(im).save(path)
+        cls = 1 + i % 2
+        entry = {"image": path, "flipped": False, "birads_diag": cls,
+                 "boxes": np.stack([box, [0, 0, w - 1, h - 1]]),
+                 "gt_classes": np.array([cls, 0])}
+        (sup if i < n_sup else ws).append(entry)
+    return sup, ws, sizes
+
+
+def train_batches(cfg, canvas, sup, ws, n_steps: int):
+    """``n_steps`` joint minibatches (1 + 2 images each) and one weak-only
+    minibatch, drawn from one RandomState(cfg.RNG_SEED) in that order."""
+    from wssdl_bus_tpu_torch.data.minibatch import (get_minibatch,
+                                                    get_minibatch_joint)
+
+    rng = np.random.RandomState(cfg.RNG_SEED)
+    n_s, n_w = cfg.TRAIN.IMS_PER_BATCH, cfg.TRAIN.WS_IMS_PER_BATCH
+    joint = [get_minibatch_joint(sup[k * n_s:(k + 1) * n_s],
+                                 ws[k * n_w:(k + 1) * n_w], "VGGnet_train",
+                                 cfg, canvas, rng)
+             for k in range(n_steps)]
+    weak = get_minibatch(ws[:n_w], "VGGnet_train", cfg, canvas, True, True,
+                         rng)
+    return joint, weak
+
+
+def roi_pool_bwd_bound(feat, rois, g, scale):
+    """(bound_ms, bound_by) of one backward launch: bytes are the cotangent,
+    feat and rois read once and dfeat written once; operations one zero
+    test per cotangent element and, for the ROIs with a nonzero cotangent
+    row, one compare per window cell per channel."""
+    from wssdl_bus_tpu_torch.ops.roi_pool import (_bin_masks, active_rows,
+                                                  quantize_rois)
+
+    b, h, w, c = feat.shape
+    act = active_rows(g).reshape(-1).cpu()
+    r = rois.reshape(-1, 4).cpu()[act]
+    rsw, rsh, roi_w, roi_h = quantize_rois(r, scale)
+    hm, _ = _bin_masks(rsh, roi_h, 7, h, "gpu")
+    wm, _ = _bin_masks(rsw, roi_w, 7, w, "gpu")
+    cells = int((hm.sum(-1)[:, :, None] * wm.sum(-1)[:, None, :]).sum())
+    ops = g.numel() + cells * c
+    nbytes = (g.numel() + 2 * feat.numel() + rois.numel()) * 4
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = ops / F32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def check_backward_kernel(eng, batch):
+    """Phase 5a: the ROI-pool backward kernel against its plain version at
+    the combined step's two launches (the supervised group [1, 128] and the
+    weak group [2, 2000] of ROIs on a [38, 51, 512] map), fed the trunk's
+    own features and the step's own ROIs, with three cotangent patterns."""
+    import torch
+
+    from wssdl_bus_tpu_torch.ops.roi_pool import active_rows, roi_pool_grad
+    from wssdl_bus_tpu_torch.ops.roi_pool_cuda import roi_pool_fc_backward
+
+    n_s = eng.n_s
+    scale = 1.0 / eng.cfg.FEAT_STRIDE
+    with torch.no_grad():
+        data = torch.as_tensor(batch["data"], device=eng.device)
+        feat = eng.model.apply_trunk(data)[0]
+        _, _, det = eng.forward_train(batch, TRAIN_STEP)
+    groups = {"sup": (feat[:n_s], det["samples"].rois),
+              "weak": (feat[n_s:], det["props"].boxes[n_s:].contiguous())}
+    gen = torch.Generator(device=eng.device).manual_seed(1)
+
+    def cotangent(f, rois, pattern):
+        shape = (rois.shape[0], rois.shape[1], 49 * f.shape[-1])
+        g = torch.randn(shape, generator=gen, device=eng.device)
+        if pattern == "mil":     # one row per bag, as MIL leaves it
+            mask = torch.zeros(shape[:2], dtype=torch.bool,
+                               device=eng.device)
+            mask[:, 0] = True
+            g = g * mask[..., None]
+        return g
+
+    cases = {
+        "mil": {"sup": cotangent(*groups["sup"], "dense"),
+                "weak": cotangent(*groups["weak"], "mil")},
+        "dense": {k: cotangent(*groups[k], "dense") for k in groups},
+    }
+    err = 0.0
+    for pattern, gs in cases.items():
+        for k, g in gs.items():
+            f, rois = groups[k]
+            got = roi_pool_fc_backward(f, rois, g, 7, 7, scale)
+            want = roi_pool_grad(f, rois, g, 7, 7, scale)
+            torch.cuda.synchronize()
+            _check(torch.equal(got != 0, want != 0),
+                   f"backward ({pattern}, {k}): nonzero positions differ")
+            e = float((got - want).abs().max())
+            _check(e == 0.0, f"backward ({pattern}, {k}): max |diff| {e}")
+            err = max(err, e)
+            print(f"[backward] {pattern:5s} {k:4s} g {tuple(g.shape)}, "
+                  f"{int(active_rows(g).sum())} active rows: identical "
+                  f"nonzero positions ({int((got != 0).sum())}), max |diff|"
+                  f" {e}", flush=True)
+    # a tie: a constant map; every bin's whole cotangent lands on one cell
+    f, rois = groups["sup"]
+    f1 = torch.ones_like(f)
+    g1 = torch.ones((1, rois.shape[1], 49 * f.shape[-1]), device=eng.device)
+    got = roi_pool_fc_backward(f1, rois, g1, 7, 7, scale)
+    want = roi_pool_grad(f1, rois, g1, 7, 7, scale)
+    nonempty = int((want != 0).sum())
+    _check(torch.equal(got, want), "backward (tie): kernel != plain")
+    _check(bool((got == got.round()).all()),
+           "backward (tie): a bin's cotangent was split between cells")
+    print(f"[backward] tie   sup  constant map: kernel == plain, every bin's "
+          f"cotangent on one cell ({nonempty} cells hit, sum "
+          f"{float(got.sum()):.0f})", flush=True)
+
+    # times of one step's two launches (the MIL pattern: the real one)
+    gs = cases["mil"]
+    ms = plain_ms = bound_ms = 0.0
+    per = {}
+    for k, g in gs.items():
+        f, rois = groups[k]
+        t = cuda_ms(lambda: roi_pool_fc_backward(f, rois, g, 7, 7, scale),
+                    20)
+        tp = cuda_ms(lambda: roi_pool_grad(f, rois, g, 7, 7, scale), 2,
+                     warmup=1)
+        bnd, by = roi_pool_bwd_bound(f, rois, g, scale)
+        per[k] = {"ms": t, "plain_ms": tp, "bound_ms": bnd, "bound_by": by,
+                  "g_shape": list(g.shape)}
+        ms, plain_ms, bound_ms = ms + t, plain_ms + tp, bound_ms + bnd
+        print(f"[backward] {k:4s} launch: kernel {t:.4f} ms, plain {tp:.3f} "
+              f"ms, bound {bnd:.4f} ms by {by}", flush=True)
+    tdense = cuda_ms(lambda: roi_pool_fc_backward(
+        *groups["weak"], cases["dense"]["weak"], 7, 7, scale), 5)
+    print(f"[backward] weak launch with a dense cotangent (all 4000 rows): "
+          f"kernel {tdense:.4f} ms", flush=True)
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": "bytes" if all(
+                v["bound_by"] == "bytes" for v in per.values())
+            else "operations", "per_launch": per,
+            "dense_weak_ms": tdense}
+
+
+def run_training(eng, joint, weak):
+    """Phase 5b: TRAIN_STEPS combined steps and one MIL step; -> per-step
+    losses and times.  The launch counters are read by the caller."""
+    import torch
+
+    rows, times = [], []
+    for k, batch in enumerate(joint):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ls = eng.train_step(batch, step=TRAIN_STEP + k)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        vals = [float(x) for x in ls]
+        _check(all(np.isfinite(vals)), f"step {k}: losses {vals}")
+        rows.append(dict(zip(ls._fields, vals)))
+        print(f"[train] step {k}: {times[-1]:.2f} ms; losses " + ", ".join(
+            f"{n} {v:.6f}" for n, v in rows[-1].items()), flush=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mil = float(eng.train_step_mil(weak, step=TRAIN_STEP + len(joint)))
+    torch.cuda.synchronize()
+    mil_ms = (time.perf_counter() - t0) * 1e3
+    _check(np.isfinite(mil), f"MIL step loss {mil}")
+    print(f"[train] MIL step: {mil_ms:.2f} ms; mil_cls {mil:.6f}", flush=True)
+    return rows, times, mil, mil_ms
+
+
+def time_train_step(eng, batch, reps: int = 3) -> float:
+    """Mean ms of a combined step by CUDA events (after the run above)."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for k in range(reps):
+        eng.train_step(batch, step=TRAIN_STEP)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def profile_train(eng, batch, out_dir: str):
+    """``--profile``: torch.profiler over two combined training steps."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    eng.train_step(batch, step=TRAIN_STEP)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(2):
+            eng.train_step(batch, step=TRAIN_STEP)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = [e for e in prof.key_averages()
+              if getattr(e, "device_time_total", 0) > 0
+              and e.device_type == torch.autograd.DeviceType.CUDA]
+    events.sort(key=lambda e: -e.device_time_total)
+    busy = sum(e.device_time_total for e in events) / 1e6
+    print(f"[profile-train] 2 combined steps: wall {wall * 1e3:.3f} ms, "
+          f"device busy {busy * 1e3:.3f} ms ({100 * busy / wall:.1f}%)",
+          flush=True)
+    for e in events[:20]:
+        print(f"[profile-train] {e.device_time_total / 2e3:9.4f} ms/step "
+              f"x{e.count // 2:<5d} {e.key[:110]}", flush=True)
+    os.makedirs(out_dir, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(out_dir, "train_step_trace.json"))
+
+
+def check_train_parity(model, cfg, canvas, batch, device="cuda"):
+    """Phase 6b: one combined step through the kernels and one through the
+    plain versions, from copies of the same model, fresh optimizers and the
+    same injected draws, TF32 off and cuDNN deterministic."""
+    import copy
+
+    import torch
+
+    from wssdl_bus_tpu_torch.ops.proposal_target import num_candidates
+    from wssdl_bus_tpu_torch.train.engine import Engine, StepDraws
+
+    engs = [Engine(copy.deepcopy(model), cfg, canvas, device=device,
+                   plain_ops=plain) for plain in (False, True)]
+    t = cfg.TRAIN
+    gen = torch.Generator(device=device).manual_seed(7)
+    k = len(engs[0].anchors)
+    n = num_candidates(t.RPN_POST_NMS_TOP_N, t.MAX_GT_PER_IMAGE,
+                       t.BATCH_SIZE)
+    rand = lambda *shape: torch.rand(shape, generator=gen,  # noqa: E731
+                                     device=device)
+    n_sup = t.IMS_PER_BATCH * t.BATCH_SIZE
+    n_ws = t.WS_IMS_PER_BATCH * t.RPN_POST_NMS_TOP_N
+    draws = StepDraws(anchor_u=rand(t.IMS_PER_BATCH, 2, k),
+                      roi_u=rand(t.IMS_PER_BATCH, 2, n),
+                      keep_sup=(rand(n_sup, 512) < 0.5,
+                                rand(n_sup, 512) < 0.5),
+                      keep_ws=(rand(n_ws, 512) < 0.5, rand(n_ws, 512) < 0.5))
+    dets = []
+    with torch.no_grad():
+        for e in engs:
+            dets.append(e.forward_train(batch, TRAIN_STEP, draws)[2])
+    (dk, dp) = dets
+    for name, a, b in (("keep sets", dk["props"].valid, dp["props"].valid),
+                       ("proposals", dk["props"].boxes, dp["props"].boxes),
+                       ("sampled ROIs", dk["samples"].rois,
+                        dp["samples"].rois),
+                       ("ROI labels", dk["samples"].labels,
+                        dp["samples"].labels),
+                       ("anchor labels", dk["anchor_targets"].labels,
+                        dp["anchor_targets"].labels)):
+        _check(torch.equal(a, b), f"training parity: {name} differ")
+    lr = t.LEARNING_RATE
+    losses = [e.train_step(batch, lr, TRAIN_STEP, draws) for e in engs]
+    loss_err = max(abs(float(a) - float(b)) / max(abs(float(b)), 1e-12)
+                   for a, b in zip(*losses))
+    sds = [e.model.state_dict() for e in engs]
+    param_err = max(float((sds[0][n_] - sds[1][n_]).abs().max())
+                    for n_ in sds[0])
+    # identical pooled features and dfeat feed deterministic cuDNN / cuBLAS
+    # kernels of the same shapes: the runs should agree exactly; the
+    # tolerances allow reassociation only
+    _check(loss_err <= 1e-6, f"training parity: losses differ by "
+           f"{loss_err} (relative) > 1e-6")
+    _check(param_err <= 1e-3 * lr, f"training parity: updated parameters "
+           f"differ by {param_err} > {1e-3 * lr}")
+    print(f"[parity] training step (TF32 off, deterministic cuDNN): kernels "
+          f"vs plain versions: keep sets ({int(dk['props'].valid.sum())} "
+          f"kept), proposals, sampled ROIs and labels identical; max "
+          f"relative |d loss| {loss_err}, max |d param| {param_err} "
+          f"(tolerances 1e-6 and {1e-3 * lr})", flush=True)
+    return {"loss_rel_err": loss_err, "param_abs_err": param_err}
+
+
 def main() -> int:
     import torch
 
@@ -333,12 +649,17 @@ def main() -> int:
     sys.path.insert(0, REPO)
     from wssdl_bus_tpu_torch.config import Config
     from wssdl_bus_tpu_torch.data.augment import max_canvas
+    from wssdl_bus_tpu_torch.models.convert import he_init_
+    from wssdl_bus_tpu_torch.models.detector import build_detector
     from wssdl_bus_tpu_torch.ops import _build
     from wssdl_bus_tpu_torch.ops.nms_cuda import nms_keep
-    from wssdl_bus_tpu_torch.ops.roi_pool_cuda import roi_pool_fc
+    from wssdl_bus_tpu_torch.ops.roi_pool_cuda import (roi_pool_fc,
+                                                       roi_pool_fc_backward)
     from wssdl_bus_tpu_torch.train.engine import Engine
 
     t_start = time.perf_counter()
+    profile = "--profile" in sys.argv[1:]
+    out_dir = os.path.join(REPO, "chiprun_out")
     # phase 1: device
     kind = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
@@ -353,7 +674,7 @@ def main() -> int:
     # phase 2: build
     t0 = time.perf_counter()
     _build.build_all(verbose=True)
-    print(f"[build] both kernels built for sm_90a in "
+    print(f"[build] {len(_build.SOURCES)} sources built for sm_90a in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
     net = "VGGnet_test"
@@ -374,16 +695,21 @@ def main() -> int:
     # phase 4a: the served path through the kernels, counters around it
     nms_keep.launches = 0
     roi_pool_fc.launches = 0
+    roi_pool_fc_backward.launches = 0
     served_1 = serve(eng, requests[:BATCH_1_REQUESTS], net, 1)
     served_8 = serve(eng, requests, net, BATCH)
     torch.cuda.synchronize()
-    launches = {"nms_keep": nms_keep.launches,
-                "roi_pool_fc": roi_pool_fc.launches}
+    serve_launches = {"nms_keep": nms_keep.launches,
+                      "roi_pool_fc": roi_pool_fc.launches,
+                      "roi_pool_fc_backward": roi_pool_fc_backward.launches}
     want = BATCH_1_REQUESTS + 1
-    print(f"[serve] launches during the served run: {launches} "
-          f"(expected {want} each: one per served batch)", flush=True)
-    for name, n in launches.items():
-        _check(n == want, f"{name} launched {n} times, expected {want}")
+    print(f"[serve] launches during the served run: {serve_launches} "
+          f"(expected {want} for the two forward kernels: one per served "
+          f"batch)", flush=True)
+    for name in ("nms_keep", "roi_pool_fc"):
+        _check(serve_launches[name] == want,
+               f"{name} launched {serve_launches[name]} times, expected "
+               f"{want}")
     for scores, boxes, _ in served_1 + served_8:
         _check(scores.ndim == 2 and scores.shape[1] == 3
                and boxes.shape == (scores.shape[0], 12),
@@ -408,11 +734,75 @@ def main() -> int:
               f"{t['decode_report_ms_per_image']:.3f}; peak "
               f"{t['peak_bytes'] / 2**20:.1f} MiB allocated; {smi}",
               flush=True)
-    if "--profile" in sys.argv[1:]:
-        profile_step(eng, requests, net, os.path.join(REPO, "chiprun_out"))
+    if profile:
+        profile_step(eng, requests, net, out_dir)
 
-    # phase 4c: the same requests with the kernels swapped for the plain
-    # versions, TF32 off on both sides so the trunks are bit-identical
+    # phase 5: the training path, default TRAIN settings
+    tcfg = Config()
+    t = tcfg.TRAIN
+    tmp = tempfile.TemporaryDirectory()
+    sup, ws, sizes = write_roidb(tmp.name, seed=1,
+                                 n_sup=TRAIN_STEPS * t.IMS_PER_BATCH,
+                                 n_ws=TRAIN_STEPS * t.WS_IMS_PER_BATCH)
+    crop = t.CROPPING_MAX_MARGIN if t.USE_CROPPING else 0.0
+    tcanvas = max_canvas(sizes, t.SCALES[0], t.MAX_SIZE, crop_margin=crop)
+    joint, weak = train_batches(tcfg, tcanvas, sup, ws, TRAIN_STEPS)
+    tmodel = he_init_(build_detector("VGGnet_train", device="cuda"), 0,
+                      input_scale=64.0)
+    teng = Engine(tmodel, tcfg, tcanvas)
+    print(f"[train] VGG16 full width, canvas {tcanvas}, {t.IMS_PER_BATCH} "
+          f"supervised + {t.WS_IMS_PER_BATCH} weak images, RPN "
+          f"{t.RPN_PRE_NMS_TOP_N} -> {t.RPN_POST_NMS_TOP_N} at NMS "
+          f"{t.RPN_NMS_THRESH}, {t.BATCH_SIZE} ROIs per supervised image, "
+          f"adam lr {t.LEARNING_RATE}, MIL {teng.selector_pair}", flush=True)
+
+    # phase 5a: the backward kernel at the step's shapes
+    stats["roi_pool_fc_backward"] = check_backward_kernel(teng, joint[0])
+
+    # phase 5b: 3 combined steps + 1 MIL step, counters around them
+    before = {k: v.clone() for k, v in tmodel.state_dict().items()}
+    torch.cuda.reset_peak_memory_stats()
+    nms_keep.launches = 0
+    roi_pool_fc.launches = 0
+    roi_pool_fc_backward.launches = 0
+    rows, step_ms, mil, mil_ms = run_training(teng, joint, weak)
+    torch.cuda.synchronize()
+    train_launches = {"nms_keep": nms_keep.launches,
+                      "roi_pool_fc": roi_pool_fc.launches,
+                      "roi_pool_fc_backward": roi_pool_fc_backward.launches}
+    expect = {"nms_keep": TRAIN_STEPS + 1,
+              "roi_pool_fc": 2 * TRAIN_STEPS + 1,
+              "roi_pool_fc_backward": 2 * TRAIN_STEPS + 1}
+    print(f"[train] launches during the training run: {train_launches} "
+          f"(expected {expect}: NMS once per step, the pool forward and "
+          f"backward twice per combined step and once per MIL step)",
+          flush=True)
+    for name, n in expect.items():
+        _check(train_launches[name] == n,
+               f"{name} launched {train_launches[name]} times in training, "
+               f"expected {n}")
+    peak = torch.cuda.max_memory_allocated()
+    after = tmodel.state_dict()
+    frozen = [k for k in after if ".conv1_" in k or ".conv2_" in k]
+    _check(len(frozen) == 8 and all(torch.equal(before[k], after[k])
+                                    for k in frozen),
+           "conv1/conv2 parameters changed")
+    unmoved = [k for k in after if k not in frozen
+               and torch.equal(before[k], after[k])]
+    _check(not unmoved, f"parameters that did not move: {unmoved}")
+    step_time = time_train_step(teng, joint[-1])
+    print(f"[train] {TRAIN_STEPS} combined steps + 1 MIL step: all losses "
+          f"finite; conv1/conv2 ({len(frozen)} tensors) bitwise unchanged, "
+          f"the other {len(after) - len(frozen)} moved; combined step "
+          f"{step_time:.3f} ms by CUDA events (3 more steps), host clock "
+          f"{', '.join(f'{x:.2f}' for x in step_ms)} ms, MIL step "
+          f"{mil_ms:.2f} ms; peak {peak / 2**20:.1f} MiB allocated; {smi}",
+          flush=True)
+    if profile:
+        profile_train(teng, joint[-1], out_dir)
+
+    # phase 6: parity with the plain versions, TF32 off on both sides so
+    # the trunks are bit-identical
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.benchmark = False
@@ -433,21 +823,45 @@ def main() -> int:
     print(f"[parity] f32 (TF32 off): kernels vs plain versions on the card: "
           f"keep sets and proposal boxes identical, max |d cls_prob| "
           f"{prob_err}, reported detections identical", flush=True)
+    train_parity = check_train_parity(tmodel, tcfg, tcanvas, joint[0])
+    tmp.cleanup()
 
+    def launches(name):
+        return {"launches": serve_launches[name] + train_launches[name],
+                "launches_by_path": {"serve": serve_launches[name],
+                                     "train": train_launches[name]}}
+
+    bwd = {k: v for k, v in stats["roi_pool_fc_backward"].items()
+           if k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")}
     kernels = [
         dict(name="nms_keep", route="cuda",
              source="wssdl_bus_tpu_torch/csrc/nms.cu",
              replaces="wssdl_bus_tpu/ops/nms_pallas.py:42",
-             launches=launches["nms_keep"], library_ms=None,
-             **stats["nms_keep"]),
+             library_ms=None, **launches("nms_keep"), **stats["nms_keep"]),
         dict(name="roi_pool_fc", route="cuda",
              source="wssdl_bus_tpu_torch/csrc/roi_pool.cu",
              replaces="wssdl_bus_tpu/ops/roi_pool_pallas.py:373",
-             launches=launches["roi_pool_fc"], library_ms=None,
+             library_ms=None, **launches("roi_pool_fc"),
              **stats["roi_pool_fc"]),
+        dict(name="roi_pool_fc_backward", route="cuda",
+             source="wssdl_bus_tpu_torch/csrc/roi_pool.cu",
+             replaces="wssdl_bus_tpu/ops/roi_pool_pallas.py:140",
+             library_ms=None, **launches("roi_pool_fc_backward"), **bwd),
     ]
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
-    print(json.dumps({"serving": {str(b): t for b, t in perf.items()},
+    print(json.dumps({"serving": {str(b): v for b, v in perf.items()},
+                      "training": {"losses": rows, "mil_step_loss": mil,
+                                   "step_ms_cuda_events": step_time,
+                                   "step_ms_host": step_ms,
+                                   "mil_step_ms_host": mil_ms,
+                                   "peak_bytes": peak,
+                                   "parity": train_parity,
+                                   "backward_per_launch":
+                                       stats["roi_pool_fc_backward"][
+                                           "per_launch"],
+                                   "backward_dense_weak_ms":
+                                       stats["roi_pool_fc_backward"][
+                                           "dense_weak_ms"]},
                       "card": smi}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,6 +1,7 @@
-"""The port stands alone: importing it and serving a request loads nothing of
-JAX or of the JAX package; no file of it (or ``chip_smoke.py``) imports
-them; and its entry points never drop to the CPU unasked."""
+"""The port stands alone: importing it, serving a request and taking
+training steps load nothing of JAX or of the JAX package; no file of it (or
+``chip_smoke.py``) imports them; and its entry points never drop to the CPU
+unasked."""
 
 import ast
 import json
@@ -9,7 +10,7 @@ import subprocess
 import sys
 
 import jax  # noqa: F401  (the test process itself has both frameworks)
-import numpy as np  # noqa: F401
+import numpy as np
 import pytest
 import torch
 
@@ -54,6 +55,59 @@ def test_serving_loads_no_jax_module():
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res["n"] > 0
     assert "wssdl_bus_tpu_torch.train.engine" in res["modules"]
+    assert [m for m in res["modules"] if _forbidden(m)] == []
+
+
+_TRAIN_ON_CPU = """
+import json, sys, tempfile, os
+import numpy as np
+import torch
+from PIL import Image
+torch.set_num_threads(2)
+from wssdl_bus_tpu_torch.config import Config
+from wssdl_bus_tpu_torch.data.minibatch import get_minibatch_joint
+from wssdl_bus_tpu_torch.models.convert import he_init_
+from wssdl_bus_tpu_torch.models.detector import build_detector
+from wssdl_bus_tpu_torch.train.engine import Engine
+cfg = Config().with_overrides(["TRAIN.SCALES", "(64,)", "TRAIN.MAX_SIZE",
+                               "96", "ANCHOR_SCALES", "(2, 4, 8)",
+                               "TRAIN.RPN_PRE_NMS_TOP_N", "50",
+                               "TRAIN.RPN_POST_NMS_TOP_N", "10",
+                               "TRAIN.BATCH_SIZE", "8"])
+d = tempfile.mkdtemp()
+rng = np.random.RandomState(0)
+roidb = []
+for i in range(3):
+    path = os.path.join(d, f"{i}.png")
+    Image.fromarray(rng.randint(0, 255, (40, 60)).astype(np.uint8)).save(path)
+    roidb.append({"image": path, "boxes": np.array([[10, 8, 30, 25],
+                  [0, 0, 59, 39]], np.float32),
+                  "gt_classes": np.array([2, 0]), "birads_diag": 1 + i % 2})
+batch = get_minibatch_joint(roidb[:1], roidb[1:], "VGGnet_train", cfg,
+                            (80, 112), np.random.RandomState(0))
+model = he_init_(build_detector("VGGnet_train", device="cpu"), 0, 64.0)
+eng = Engine(model, cfg, (80, 112), device="cpu")
+ls = eng.train_step(batch, step=0)
+mil = eng.train_step_mil({k: batch[k][1:] for k in ("data", "im_info")})
+print(json.dumps({"modules": sorted(sys.modules),
+                  "losses": [float(x) for x in ls] + [float(mil)]}))
+"""
+
+
+def test_training_loads_no_jax_module():
+    """The training slice end to end on the CPU (minibatch from image
+    files, one combined and one MIL step) in a fresh process."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", _TRAIN_ON_CPU], cwd=REPO,
+                         env=env, capture_output=True, text=True,
+                         timeout=300, check=True)
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert np.isfinite(res["losses"]).all()
+    for m in ("wssdl_bus_tpu_torch.ops.anchor_target",
+              "wssdl_bus_tpu_torch.ops.proposal_target",
+              "wssdl_bus_tpu_torch.mil", "wssdl_bus_tpu_torch.train.losses",
+              "wssdl_bus_tpu_torch.data.minibatch"):
+        assert m in res["modules"]
     assert [m for m in res["modules"] if _forbidden(m)] == []
 
 

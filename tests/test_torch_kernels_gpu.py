@@ -1,6 +1,6 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card,
-at the served path's shapes and at awkward ones.  Marked ``gpu``: they skip
-without a CUDA device.
+at the served and trained paths' shapes and at awkward ones.  Marked
+``gpu``: they skip without a CUDA device.
 
 The card's machine has no JAX, which ``tests/conftest.py`` imports, so this
 file imports none and runs there without the conftest:
@@ -14,7 +14,9 @@ import torch
 
 from wssdl_bus_tpu_torch.ops.nms import nms_mask
 from wssdl_bus_tpu_torch.ops.nms_cuda import nms_keep
+from wssdl_bus_tpu_torch.ops.roi_pool import roi_pool_grad
 from wssdl_bus_tpu_torch.ops.roi_pool_cuda import (roi_pool_fc,
+                                                   roi_pool_fc_backward,
                                                    roi_pool_fc_plain,
                                                    roi_pool_grouped)
 
@@ -92,6 +94,75 @@ def test_roi_pool_kernel_matches_plain(cuda, b, p, h, w, c, flavor):
     assert torch.equal(grouped.reshape(got.shape), want)
 
 
+def _cotangent(rng, b, p, d, pattern):
+    g = rng.randn(b, p, d).astype(np.float32)
+    if pattern == "mil":      # one active row per bag, as MIL leaves it
+        keep = np.zeros((b, p), bool)
+        keep[np.arange(b), rng.randint(0, p, b)] = True
+        g[~keep] = 0.0
+    elif pattern == "half":
+        g[:, ::2] = 0.0
+    return g
+
+
+@pytest.mark.parametrize("b,p,h,w,c,pattern", [
+    (1, 128, 38, 51, 512, "dense"),   # the supervised group of a train step
+    (2, 2000, 38, 51, 512, "mil"),    # the weak group: 1 of 2000 rows active
+    (1, 300, 20, 23, 8, "half"),
+    (2, 37, 7, 9, 12, "dense"),       # small map, C not a multiple of 32
+])
+@pytest.mark.parametrize("flavor", ["gpu", "cpu"])
+def test_roi_pool_backward_kernel_matches_plain(cuda, b, p, h, w, c, pattern,
+                                                flavor):
+    """Identical dfeat, bit for bit: the kernel adds in the plain
+    version's order.  The map is post-ReLU, so zero ties abound."""
+    rng = np.random.RandomState(p + c)
+    feat = np.maximum(rng.randn(b, h, w, c), 0).astype(np.float32)
+    feat = torch.from_numpy(feat).to(cuda)
+    rois = torch.from_numpy(_rois(rng, b, p, h, w)).to(cuda)
+    g = torch.from_numpy(_cotangent(rng, b, p, 49 * c, pattern)).to(cuda)
+    before = roi_pool_fc_backward.launches
+    got = roi_pool_fc_backward(feat, rois, g, flavor=flavor)
+    torch.cuda.synchronize()
+    assert roi_pool_fc_backward.launches == before + 1
+    want = roi_pool_grad(feat, rois, g, flavor=flavor)
+    assert torch.equal(got != 0, want != 0)
+    assert torch.equal(got, want)
+    assert (got != 0).any()
+
+
+def test_roi_pool_backward_kernel_tie_goes_to_one_cell(cuda):
+    """A constant bin: its whole cotangent lands on one cell."""
+    feat = torch.full((1, 16, 16, 4), 3.0, device=cuda)
+    rois = torch.tensor([[[0.0, 0.0, 16 * 7 - 1, 16 * 7 - 1]]], device=cuda)
+    g = torch.ones(1, 1, 49 * 4, device=cuda)
+    got = roi_pool_fc_backward(feat, rois, g)
+    assert torch.equal(got, roi_pool_grad(feat, rois, g))
+    assert float(got.sum()) == 49 * 4
+    assert set(got.unique().tolist()) <= {0.0, 1.0, 2.0, 3.0, 4.0}
+
+
+def test_roi_pool_fc_autograd_on_the_card(cuda):
+    """roi_pool_fc's backward launches the kernel, keeps only (feat, rois)
+    for it, and agrees with the plain autograd path."""
+    rng = np.random.RandomState(0)
+    feat = torch.from_numpy(rng.randn(2, 12, 15, 16).astype(np.float32))
+    rois = torch.from_numpy(_rois(rng, 2, 40, 12, 15)).to(cuda)
+    g = torch.from_numpy(rng.randn(2, 40, 49 * 16).astype(np.float32))
+    fk = feat.to(cuda).requires_grad_(True)
+    fp = feat.to(cuda).requires_grad_(True)
+    fwd, bwd = roi_pool_fc.launches, roi_pool_fc_backward.launches
+    out = roi_pool_fc(fk, rois)
+    saved = out.grad_fn.saved_tensors
+    assert [t.shape for t in saved] == [fk.shape, rois.shape]
+    out.backward(g.to(cuda))
+    roi_pool_fc_plain(fp, rois).backward(g.to(cuda))
+    torch.cuda.synchronize()
+    assert (roi_pool_fc.launches, roi_pool_fc_backward.launches) == \
+        (fwd + 1, bwd + 1)
+    assert torch.equal(fk.grad, fp.grad)
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     feat = torch.zeros(1, 4, 4, 6, device=cuda)
     rois = torch.zeros(1, 2, 4, device=cuda)
@@ -101,6 +172,9 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         roi_pool_fc(feat[..., :4].contiguous(), rois.cpu())
     with pytest.raises(TypeError):
         roi_pool_fc(feat[..., :4].double().contiguous(), rois.double())
+    with pytest.raises(ValueError, match="grad"):
+        roi_pool_fc_backward(feat[..., :4].contiguous(), rois,
+                             torch.zeros(1, 2, 49 * 8, device=cuda))
     boxes = torch.zeros(1, 4, 8, device=cuda)
     with pytest.raises(TypeError):
         nms_keep(boxes, torch.ones(1, 8, device=cuda), 0.7)

@@ -32,6 +32,35 @@
 // bytes of the output row: every access is a full 16-byte-per-thread,
 // coalesced transaction.  The ROI's quantisation and bin edges are a few
 // integer operations each block recomputes from the ROI row.
+//
+// ---------------------------------------------------------------------------
+// Backward (roi_pool_bwd_kernel, after roi_rows_active_kernel): the VJP of
+// the pool with respect to feat.  Replaces the TPU kernel
+// wssdl_bus_tpu/ops/roi_pool_pallas.py:_bwd_kernel (reached from
+// roi_pool_fc's f32 VJP, _fc_vjp_bwd) and computes what it computes, which
+// is not what amax's autograd computes:
+//   * for a non-empty bin (i, j) and channel c, w* is the first column of
+//     the bin whose column maximum (over the bin's rows) equals the bin
+//     maximum, h* the first row of the bin attaining that column maximum;
+//     g[r, i, j, c] goes to dfeat[b, h*, w*, c] whole; empty bins add
+//     nothing;
+//   * a ROI whose whole cotangent row is zero adds nothing and is skipped
+//     (in the weak group only the MIL-selected ROI of each bag has a
+//     nonzero row: about 1 of 2000).
+// Bins of one ROI overlap by a row or column under the "gpu" edges, and
+// ROIs overlap each other, so contributions meet on cells.  The design is
+// deterministic instead of atomic: one block owns the slice (image b,
+// channels 4*cg .. 4*cg+3) of dfeat in shared memory, walks the active ROIs
+// in ascending order and adds in the Pallas kernel's order (bin rows i
+// ascending; within a row, the cotangents of bins sharing a column summed
+// in j order first).  The result equals the plain version
+// (ops/roi_pool.py:roi_pool_grad) bit for bit.
+//
+// What bounds it: reading the cotangent.  Finding the zero rows reads all
+// of it once, 2000 x 49 x 512 x 4 B = 200 MB per weak image, in a separate
+// coalesced pass (roi_rows_active_kernel, one block per ROI row); the
+// scatter then reads only the active rows, the feature cells of their bins
+// (from L2: a 38 x 51 x 512 map is 4 MB) and writes dfeat once.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -100,6 +129,163 @@ __global__ void roi_pool_fwd_kernel(const float4* __restrict__ feat,
   }
 }
 
+// One block per cotangent row (b * p + roi): active[row] = 1 if any of
+// its `row4` float4s has a nonzero (or NaN) entry.
+__global__ void roi_rows_active_kernel(const float4* __restrict__ g,
+                                       int row4, int* __restrict__ active) {
+  const float4* row = g + (size_t)blockIdx.x * row4;
+  int any = 0;
+  for (int k = threadIdx.x; k < row4; k += blockDim.x) {
+    const float4 v = row[k];
+    any |= (v.x != 0.f) | (v.y != 0.f) | (v.z != 0.f) | (v.w != 0.f);
+  }
+  any = __syncthreads_or(any);
+  if (threadIdx.x == 0) active[blockIdx.x] = any;
+}
+
+// Grid (c4, batch): block (cg, b) owns dfeat[b, :, :, 4cg .. 4cg+3].
+// blockDim.x is a multiple of 32 and at most 1024.
+// Dynamic shared memory: the owned slice [h * w] float4, then for a batch
+// of `rb` ROIs x `nb` bins the chosen cell of each lane (int4, -1 = empty
+// bin) and its cotangent (float4), then the compacted ROI list.
+__global__ void roi_pool_bwd_kernel(const float4* __restrict__ feat,
+                                    const float* __restrict__ rois,
+                                    const float4* __restrict__ g,
+                                    const int* __restrict__ active, int p,
+                                    int h, int w, int c4, int pooled_h,
+                                    int pooled_w, float spatial_scale,
+                                    int flavor, int rb,
+                                    float4* __restrict__ dfeat) {
+  extern __shared__ float4 smem[];
+  const int cg = blockIdx.x;
+  const int b = blockIdx.y;
+  const int hw = h * w;
+  const int nb = pooled_h * pooled_w;
+  float* acc = reinterpret_cast<float*>(smem);                 // [hw][4]
+  int4* pos = reinterpret_cast<int4*>(smem + hw);              // [rb * nb]
+  float4* gv = smem + hw + rb * nb;                            // [rb * nb]
+  int* list = reinterpret_cast<int*>(smem + hw + 2 * rb * nb); // [blockDim]
+  __shared__ int n_list;
+  __shared__ int warp_n[32];
+
+  for (int k = threadIdx.x; k < hw; k += blockDim.x)
+    smem[k] = make_float4(0.f, 0.f, 0.f, 0.f);
+
+  const float4* fb = feat + (size_t)b * hw * c4 + cg;
+  for (int base = 0; base < p; base += blockDim.x) {
+    // compact this chunk's active ROIs, in ascending order
+    const int r_mine = base + threadIdx.x;
+    const int is_active = r_mine < p && active[(size_t)b * p + r_mine];
+    const unsigned ballot = __ballot_sync(0xffffffffu, is_active);
+    const int lane = threadIdx.x & 31;
+    const int warp = threadIdx.x >> 5;
+    if (lane == 0) warp_n[warp] = __popc(ballot);
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      int n = 0;
+      for (int k = 0; k < (int)(blockDim.x >> 5); ++k) {
+        const int m = warp_n[k];
+        warp_n[k] = n;
+        n += m;
+      }
+      n_list = n;
+    }
+    __syncthreads();
+    if (is_active)
+      list[warp_n[warp] + __popc(ballot & ((1u << lane) - 1u))] = r_mine;
+    __syncthreads();
+    const int n_act = n_list;
+    for (int k0 = 0; k0 < n_act; k0 += rb) {
+      // phase 1: each thread finds one (ROI, bin)'s cells for 4 channels
+      const int t = threadIdx.x;
+      const int slot = t / nb;
+      if (slot < rb && k0 + slot < n_act) {
+        const int bin = t - slot * nb;
+        const int r = list[k0 + slot];
+        const size_t bp = (size_t)b * p + r;
+        const float* roi = rois + bp * 4;
+        const int rsw = quantize(roi[0], spatial_scale);
+        const int rsh = quantize(roi[1], spatial_scale);
+        const int rew = quantize(roi[2], spatial_scale);
+        const int reh = quantize(roi[3], spatial_scale);
+        const int roi_w = max(rew - rsw + 1, 1);
+        const int roi_h = max(reh - rsh + 1, 1);
+        const int i = bin / pooled_w;
+        const int j = bin - i * pooled_w;
+        int hlo, hhi, wlo, whi;
+        bin_edges(i, rsh, roi_h, pooled_h, h, flavor, &hlo, &hhi);
+        bin_edges(j, rsw, roi_w, pooled_w, w, flavor, &wlo, &whi);
+        int4 cell = make_int4(-1, -1, -1, -1);
+        if (hhi > hlo && whi > wlo) {
+          float4 best = make_float4(0.f, 0.f, 0.f, 0.f);
+          int4 bh = make_int4(0, 0, 0, 0), bw = bh;
+          for (int x = wlo; x < whi; ++x) {
+            // column max over the bin's rows, and its first row
+            float4 cm = fb[((size_t)hlo * w + x) * c4];
+            int4 ch = make_int4(hlo, hlo, hlo, hlo);
+            for (int y = hlo + 1; y < hhi; ++y) {
+              const float4 v = fb[((size_t)y * w + x) * c4];
+              if (v.x > cm.x) { cm.x = v.x; ch.x = y; }
+              if (v.y > cm.y) { cm.y = v.y; ch.y = y; }
+              if (v.z > cm.z) { cm.z = v.z; ch.z = y; }
+              if (v.w > cm.w) { cm.w = v.w; ch.w = y; }
+            }
+            // the first column whose max is the bin max
+            const bool first = x == wlo;
+            if (first || cm.x > best.x) {
+              best.x = cm.x; bh.x = ch.x; bw.x = x;
+            }
+            if (first || cm.y > best.y) {
+              best.y = cm.y; bh.y = ch.y; bw.y = x;
+            }
+            if (first || cm.z > best.z) {
+              best.z = cm.z; bh.z = ch.z; bw.z = x;
+            }
+            if (first || cm.w > best.w) {
+              best.w = cm.w; bh.w = ch.w; bw.w = x;
+            }
+          }
+          cell = make_int4(bh.x * w + bw.x, bh.y * w + bw.y,
+                           bh.z * w + bw.z, bh.w * w + bw.w);
+        }
+        pos[t] = cell;
+        gv[t] = g[(bp * nb + bin) * c4 + cg];
+      }
+      __syncthreads();
+      // phase 2: one thread per channel adds in the Pallas kernel's order
+      if (threadIdx.x < 4) {
+        const int lane = threadIdx.x;
+        const int* pl = reinterpret_cast<const int*>(pos);
+        const float* gl = reinterpret_cast<const float*>(gv);
+        const int n_slots = min(rb, n_act - k0);
+        for (int s = 0; s < n_slots; ++s) {
+          for (int i = 0; i < pooled_h; ++i) {
+            const int row0 = s * nb + i * pooled_w;
+            unsigned done = 0;
+            for (int j = 0; j < pooled_w; ++j) {
+              if (done & (1u << j)) continue;
+              const int cj = pl[(row0 + j) * 4 + lane];
+              if (cj < 0) continue;
+              float sum = gl[(row0 + j) * 4 + lane];
+              for (int j2 = j + 1; j2 < pooled_w; ++j2) {
+                if (pl[(row0 + j2) * 4 + lane] == cj) {
+                  sum += gl[(row0 + j2) * 4 + lane];
+                  done |= 1u << j2;
+                }
+              }
+              acc[cj * 4 + lane] += sum;
+            }
+          }
+        }
+      }
+      __syncthreads();
+    }
+  }
+  float4* ob = dfeat + (size_t)b * hw * c4 + cg;
+  for (int k = threadIdx.x; k < hw; k += blockDim.x)
+    ob[(size_t)k * c4] = smem[k];
+}
+
 }  // namespace
 
 extern "C" {
@@ -121,6 +307,44 @@ int wssdl_roi_pool_fwd(const float* feat, const float* rois, int batch, int h,
   roi_pool_fwd_kernel<<<grid, threads, 0, stream>>>(
       reinterpret_cast<const float4*>(feat), rois, p, h, w, c4, pooled_h,
       pooled_w, spatial_scale, flavor, reinterpret_cast<float4*>(out));
+  return (int)cudaGetLastError();
+}
+
+// The backward.  feat [batch, h, w, c] and rois as for the forward, g the
+// cotangent [batch, p, pooled_h, pooled_w, c] f32 (16-byte aligned), active
+// an int scratch of batch * p entries, dfeat [batch, h, w, c] f32 (16-byte
+// aligned; every element is written).  pooled_w <= 32.  Launches on
+// `stream`, does not synchronise, returns the cudaError_t of the launches
+// (cudaErrorInvalidValue when the owned dfeat slice does not fit in shared
+// memory).
+int wssdl_roi_pool_bwd(const float* feat, const float* rois, const float* g,
+                       int batch, int h, int w, int c, int p, int pooled_h,
+                       int pooled_w, float spatial_scale, int flavor,
+                       int* active, float* dfeat, cudaStream_t stream) {
+  if (batch <= 0 || h <= 0 || w <= 0 || c <= 0) return 0;
+  if (pooled_w > 32) return (int)cudaErrorInvalidValue;
+  const int c4 = c / 4;
+  const int nb = pooled_h * pooled_w;
+  const int threads = 256;
+  const int rb = threads / nb;
+  if (rb < 1) return (int)cudaErrorInvalidValue;
+  const size_t smem = ((size_t)h * w + 2 * (size_t)rb * nb) * sizeof(float4)
+                      + threads * sizeof(int);
+  cudaError_t err = cudaFuncSetAttribute(
+      roi_pool_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  if (p > 0) {
+    roi_rows_active_kernel<<<batch * p, 256, 0, stream>>>(
+        reinterpret_cast<const float4*>(g), nb * c4, active);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  const dim3 grid(c4, batch);
+  roi_pool_bwd_kernel<<<grid, threads, smem, stream>>>(
+      reinterpret_cast<const float4*>(feat), rois,
+      reinterpret_cast<const float4*>(g), active, p, h, w, c4, pooled_h,
+      pooled_w, spatial_scale, flavor, rb, reinterpret_cast<float4*>(dfeat));
   return (int)cudaGetLastError();
 }
 

@@ -1,1 +1,1 @@
-"""Host-side image preparation."""
+"""Host-side image preparation, training augmentation and minibatches."""

@@ -66,7 +66,7 @@ def params_to_jax(state_dict) -> dict:
         node = tree[part]["params"]
         for m in mod:
             node = node.setdefault(m, {})
-        node[leaf] = np.ascontiguousarray(a)
+        node[leaf] = np.array(a, order="C")   # a copy, never a view
     return tree
 
 

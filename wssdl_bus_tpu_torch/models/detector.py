@@ -76,18 +76,32 @@ class FasterRCNN(nn.Module):
         """-> (feat, rpn_cls_score, rpn_bbox_pred), NHWC."""
         return self.trunk(data)
 
-    def apply_head(self, roi_feats):
-        """-> (cls_score [N, C], bbox_pred [N, 4C])."""
-        return self.head(roi_feats)
+    def apply_head(self, roi_feats, keep=None, generator=None):
+        """-> (cls_score [N, C], bbox_pred [N, 4C]).  In training mode the
+        head's dropouts use the masks ``keep`` (fc6, fc7) or draw from
+        ``generator`` (models/vgg.py:VGGRCNNHead)."""
+        return self.head(roi_feats, keep, generator)
+
+
+def freeze_vgg_stem(model: FasterRCNN) -> FasterRCNN:
+    """conv1_* and conv2_* never train (the reference's trainable=False,
+    VGGnet_train_bus.py:45-49; the JAX package's ``vgg_frozen_mask``):
+    their parameters stop requiring gradients, so the optimizer, which
+    takes only parameters that do, leaves them bit for bit."""
+    for name, module in model.trunk.backbone.named_children():
+        if name.startswith(("conv1_", "conv2_")):
+            module.requires_grad_(False)
+    return model
 
 
 def build_detector(name: str, num_classes: int = 3,
                    device=None) -> FasterRCNN:
     """Factory mirroring the JAX package's ``build_detector`` names:
-    'VGGnet_train' / 'VGGnet_test' (and '_alter' variants) build the VGG16
-    detector in eval mode on ``device`` (CUDA unless named; raises without a
-    card).  Weights are PyTorch's default init: load converted or seeded
-    weights with ``models/convert.py``."""
+    'VGGnet_test' builds the VGG16 detector in eval mode, 'VGGnet_train'
+    (and '_alter' variants) in training mode with conv1/conv2 frozen
+    (:func:`freeze_vgg_stem`), on ``device`` (CUDA unless named; raises
+    without a card).  Weights are PyTorch's default init: load converted or
+    seeded weights with ``models/convert.py``."""
     if name.startswith("Resnet"):
         raise NotImplementedError(
             f"{name}: the ResNet backbones are not ported yet (the ResNet "
@@ -95,5 +109,8 @@ def build_detector(name: str, num_classes: int = 3,
     if not name.startswith("VGGnet"):
         raise KeyError(f"unknown network name {name}")
     dev = resolve_device(device)
-    model = FasterRCNN(num_classes=num_classes)
-    return model.to(device=dev, memory_format=torch.channels_last).eval()
+    model = FasterRCNN(num_classes=num_classes).to(
+        device=dev, memory_format=torch.channels_last)
+    if "_train" in name:
+        return freeze_vgg_stem(model).train()
+    return model.eval()

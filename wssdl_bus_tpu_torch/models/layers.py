@@ -1,6 +1,6 @@
 """Layer primitives of the VGG detector (counterparts of
 ``wssdl_bus_tpu/models/layers.py:160-236``: ``ConvBlock``, ``Fc``,
-``max_pool``).
+``max_pool``), and flax's ``nn.Dropout`` as the head uses it.
 
 Modules run NCHW tensors (in ``torch.channels_last`` memory on the card, the
 layout cuDNN prefers); ``Fc`` flattens a 4-D input in NHWC (h, w, c) order,
@@ -55,3 +55,24 @@ def max_pool(x, k: int = 2, s: int = 2):
     """k x k max pool at stride s, VALID (floor) like ``nn.max_pool(...,
     padding="VALID")``; NCHW input."""
     return F.max_pool2d(x, k, s)
+
+
+class Dropout(nn.Module):
+    """flax ``nn.Dropout`` semantics: in training, ``where(keep, x / p, 0)``
+    with keep probability p = 1 - rate; the identity in eval mode.
+
+    ``keep`` (a bool tensor of x's shape) injects the mask, as the tests do
+    with the JAX package's draws; otherwise it is drawn as ``uniform < p``
+    from ``generator`` on x's device."""
+
+    def __init__(self, rate: float = 0.5):
+        super().__init__()
+        self.keep_prob = 1.0 - rate
+
+    def forward(self, x, keep=None, generator=None):
+        if not self.training:
+            return x
+        if keep is None:
+            keep = torch.rand(x.shape, generator=generator, device=x.device,
+                              dtype=x.dtype) < self.keep_prob
+        return torch.where(keep, x / self.keep_prob, torch.zeros_like(x))

@@ -1,17 +1,17 @@
 """VGG16 trunk and RCNN head (counterparts of ``wssdl_bus_tpu/models/vgg.py``).
 
 conv1-conv5 with 2x2 VALID max-pools and biased convs without
-normalisation, and the fc6(512) -> fc7(512) -> cls_score / bbox_pred head.
-Module names match the JAX package's (and so the reference's variable
-scopes); ``models/convert.py`` maps one onto the other.  Dropout is the
-identity at inference, so the head has none until the training slice.
+normalisation, and the fc6(512) -> dropout -> fc7(512) -> dropout ->
+cls_score / bbox_pred head (dropout rate 0.5 in training, the identity in
+eval mode).  Module names match the JAX package's (and so the reference's
+variable scopes); ``models/convert.py`` maps one onto the other.
 """
 
 from __future__ import annotations
 
 from torch import nn
 
-from wssdl_bus_tpu_torch.models.layers import ConvBlock, Fc, max_pool
+from wssdl_bus_tpu_torch.models.layers import ConvBlock, Dropout, Fc, max_pool
 
 # (name, out channels), with a 2x2 max-pool after each stage but the last
 VGG16_STAGES = (
@@ -46,8 +46,8 @@ class VGG16Backbone(nn.Module):
 
 
 class VGGRCNNHead(nn.Module):
-    """fc6 -> fc7 -> (cls_score, bbox_pred) over flat NHWC pooled features
-    [N, 7*7*512] (or [N, 7, 7, 512])."""
+    """fc6 -> drop6 -> fc7 -> drop7 -> (cls_score, bbox_pred) over flat NHWC
+    pooled features [N, 7*7*512] (or [N, 7, 7, 512])."""
 
     def __init__(self, num_classes: int = 3, in_features: int = 7 * 7 * 512):
         super().__init__()
@@ -55,7 +55,13 @@ class VGGRCNNHead(nn.Module):
         self.fc7 = Fc(512, 512)
         self.cls_score = Fc(512, num_classes, relu=False)
         self.bbox_pred = Fc(512, num_classes * 4, relu=False)
+        self.drop6 = Dropout(0.5)
+        self.drop7 = Dropout(0.5)
 
-    def forward(self, roi_feats):
-        x = self.fc7(self.fc6(roi_feats))
+    def forward(self, roi_feats, keep=None, generator=None):
+        """``keep``: optional (fc6 mask, fc7 mask), bool [N, 512] each, for
+        the two dropouts in training; drawn from ``generator`` when None."""
+        k6, k7 = keep if keep is not None else (None, None)
+        x = self.drop6(self.fc6(roi_feats), k6, generator)
+        x = self.drop7(self.fc7(x), k7, generator)
         return self.cls_score(x), self.bbox_pred(x)

@@ -91,3 +91,15 @@ def iou_matrix(boxes: torch.Tensor, query: torch.Tensor) -> torch.Tensor:
               * (query[:, 3] - query[:, 1] + 1.0))
     union = area_n[:, None] + area_k[None, :] - inter
     return torch.where(inter > 0.0, inter / union, torch.zeros_like(inter))
+
+
+def iou_ui_matrix(boxes: torch.Tensor, query: torch.Tensor) -> torch.Tensor:
+    """Unidirectional overlap [N, K]: intersection / area(boxes[n]), "how
+    much of each box the query box covers" (``bbox_ui.pyx:12-47``); the
+    SNUBH anchor labelling marks anchors covered by annotated background
+    boxes as negatives with it."""
+    inter = _pairwise_intersection(boxes, query)
+    area_n = ((boxes[:, 2] - boxes[:, 0] + 1.0)
+              * (boxes[:, 3] - boxes[:, 1] + 1.0))
+    return torch.where(inter > 0.0, inter / area_n[:, None],
+                       torch.zeros_like(inter))

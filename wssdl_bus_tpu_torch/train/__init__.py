@@ -1,1 +1,1 @@
-"""The inference Engine (training steps arrive with the training slice)."""
+"""The Engine (serving and training steps), its optimizer and the losses."""
