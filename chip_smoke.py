@@ -27,12 +27,30 @@ Phases (any failure exits non-zero; nothing is caught):
      times), then 3 combined ``train_step``s and 1 ``train_step_mil`` with
      the launch counters read around them: finite losses, ms/step, peak
      memory, conv1/conv2 bitwise unchanged and every other parameter moved;
-  6. parity with TF32 off and deterministic cuDNN: the served requests and
+  6. (run after phase 9, once TF32 is off for good) parity with TF32 off
+     and deterministic cuDNN: the served requests and
      one combined training step, each through the kernels and through their
      plain versions from the same state and the same injected draws: keep
      sets, sampled ROIs and labels identical, losses and updated
      parameters within the tolerances printed;
-  7. a ``{"kernels": [...]}`` line, then the last line
+  7. the stem kernels (the fused stem ``vgg_stem_fused`` and the stem tail
+     ``vgg_conv2_pool``) against their plain versions at the served batch-8
+     and the training shapes with TF32 off: max |diff| exactly 0; CUDA-event
+     times beside the cuDNN bf16 composition of the same layers;
+  8. the bf16 output option of the ROI pool at the training shapes: its
+     forward and its backward kernel against their plain versions (values
+     and dfeat identical; the MIL-sparse, dense and tie cotangents of phase
+     5 in bf16), then the op's own path, ``roi_pool_fc(out_dtype=bf16)``
+     under autograd, with the launch counters around it;
+  9. the opt-in stem paths, ``WSSDL_FUSED_STEM=1`` and then
+     ``WSSDL_STEM_TAIL=1``: serving (3 batch-1 + 1 batch-8 requests) and
+     training (3 combined + 1 MIL steps) with the counters around each
+     (4 + 4 launches of the active stem kernel, 0 of the other; the default
+     runs of phases 4 and 5 launch neither), ms/image, ms/step, peak
+     memory, and parity with the plain versions as in phase 6, with the
+     stem path's distance from the default f32 stem printed for
+     information;
+ 10. a ``{"kernels": [...]}`` line, then the last line
      ``{"ok": true, "device": {...}}``.
 
 ``--profile`` adds torch.profiler breakdowns (device time by kernel, busy
@@ -59,11 +77,15 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 # HBM3 bandwidth, and f32 outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12     # dense bf16 on the tensor cores
 NMS_OPS_PER_PAIR = 15       # min/max/sub/add x 2 axes, clamps, mul, union, div, compare
 BATCH_1_REQUESTS = 3
 BATCH = 8
 TRAIN_STEPS = 3           # combined steps; then one MIL step
 TRAIN_STEP = 40000        # global step: MIL scale 1 - 0.99 * 0.9^20
+# the opt-in stem paths: kernel wrapper -> the variable that selects it
+STEM_PATHS = {"vgg_stem_fused": "WSSDL_FUSED_STEM",
+              "vgg_conv2_pool": "WSSDL_STEM_TAIL"}
 
 
 def _fail(msg: str):
@@ -143,9 +165,10 @@ def nms_bound(keep, valid):
                                        else "operations"), pairs
 
 
-def roi_pool_bound(feat, rois, scale):
+def roi_pool_bound(feat, rois, scale, out_bytes: int = 4):
     """(bound_ms, bound_by): bytes are feat and rois read once and the
-    output written once; operations one max per window cell per channel."""
+    output (``out_bytes`` per element) written once; operations one max per
+    window cell per channel."""
     from wssdl_bus_tpu_torch.ops.roi_pool import _bin_masks, quantize_rois
 
     b, h, w, c = feat.shape
@@ -155,7 +178,7 @@ def roi_pool_bound(feat, rois, scale):
     wm, _ = _bin_masks(rsw, roi_w, 7, w, "gpu")
     cells = int((hm.sum(-1)[:, :, None] * wm.sum(-1)[:, None, :]).sum())
     ops = cells * c
-    nbytes = feat.numel() * 4 + rois.numel() * 4 + b * p * 49 * c * 4
+    nbytes = feat.numel() * 4 + rois.numel() * 4 + b * p * 49 * c * out_bytes
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = ops / F32_OPS_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
@@ -394,10 +417,10 @@ def train_batches(cfg, canvas, sup, ws, n_steps: int):
 
 
 def roi_pool_bwd_bound(feat, rois, g, scale):
-    """(bound_ms, bound_by) of one backward launch: bytes are the cotangent,
-    feat and rois read once and dfeat written once; operations one zero
-    test per cotangent element and, for the ROIs with a nonzero cotangent
-    row, one compare per window cell per channel."""
+    """(bound_ms, bound_by) of one backward launch: bytes are the cotangent
+    (in its own dtype), feat and rois read once and dfeat written once;
+    operations one zero test per cotangent element and, for the ROIs with a
+    nonzero cotangent row, one compare per window cell per channel."""
     from wssdl_bus_tpu_torch.ops.roi_pool import (_bin_masks, active_rows,
                                                   quantize_rois)
 
@@ -409,31 +432,48 @@ def roi_pool_bwd_bound(feat, rois, g, scale):
     wm, _ = _bin_masks(rsw, roi_w, 7, w, "gpu")
     cells = int((hm.sum(-1)[:, :, None] * wm.sum(-1)[:, None, :]).sum())
     ops = g.numel() + cells * c
-    nbytes = (g.numel() + 2 * feat.numel() + rois.numel()) * 4
+    nbytes = g.numel() * g.element_size() + (2 * feat.numel()
+                                              + rois.numel()) * 4
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = ops / F32_OPS_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
 
-def check_backward_kernel(eng, batch):
-    """Phase 5a: the ROI-pool backward kernel against its plain version at
-    the combined step's two launches (the supervised group [1, 128] and the
-    weak group [2, 2000] of ROIs on a [38, 51, 512] map), fed the trunk's
-    own features and the step's own ROIs, with three cotangent patterns."""
+def training_groups(eng, batch):
+    """The combined step's two pool launches' inputs, from the trunk's own
+    features and the step's own ROIs: {"sup": (feat [1, 38, 56, 512],
+    sampled ROIs [1, 128, 4]), "weak": (feat [2, ...], proposals
+    [2, 2000, 4])}."""
     import torch
 
-    from wssdl_bus_tpu_torch.ops.roi_pool import active_rows, roi_pool_grad
-    from wssdl_bus_tpu_torch.ops.roi_pool_cuda import roi_pool_fc_backward
-
     n_s = eng.n_s
-    scale = 1.0 / eng.cfg.FEAT_STRIDE
     with torch.no_grad():
         data = torch.as_tensor(batch["data"], device=eng.device)
         feat = eng.model.apply_trunk(data)[0]
         _, _, det = eng.forward_train(batch, TRAIN_STEP)
-    groups = {"sup": (feat[:n_s], det["samples"].rois),
-              "weak": (feat[n_s:], det["props"].boxes[n_s:].contiguous())}
+    return {"sup": (feat[:n_s], det["samples"].rois),
+            "weak": (feat[n_s:], det["props"].boxes[n_s:].contiguous())}
+
+
+def check_backward_kernel(eng, groups, dtype):
+    """Phase 5a (f32 cotangent, kernel #4) and phase 8 (bf16 cotangent, the
+    bf16 output's backward): the backward kernel against its plain version
+    at the combined step's two launches (the supervised group [1, 128] and
+    the weak group [2, 2000] of ROIs on a [38, 56, 512] map) with three
+    cotangent patterns."""
+    import torch
+
+    from wssdl_bus_tpu_torch.ops.roi_pool import (active_rows, roi_pool_grad,
+                                                  roi_pool_grad_bf16)
+    from wssdl_bus_tpu_torch.ops.roi_pool_cuda import (
+        roi_pool_fc_backward, roi_pool_fc_backward_bf16)
+
+    bf16 = dtype == torch.bfloat16
+    kernel = roi_pool_fc_backward_bf16 if bf16 else roi_pool_fc_backward
+    plain = roi_pool_grad_bf16 if bf16 else roi_pool_grad
+    tag = "[backward-bf16]" if bf16 else "[backward]"
+    scale = 1.0 / eng.cfg.FEAT_STRIDE
     gen = torch.Generator(device=eng.device).manual_seed(1)
 
     def cotangent(f, rois, pattern):
@@ -444,7 +484,7 @@ def check_backward_kernel(eng, batch):
                                device=eng.device)
             mask[:, 0] = True
             g = g * mask[..., None]
-        return g
+        return g.to(dtype)
 
     cases = {
         "mil": {"sup": cotangent(*groups["sup"], "dense"),
@@ -455,29 +495,30 @@ def check_backward_kernel(eng, batch):
     for pattern, gs in cases.items():
         for k, g in gs.items():
             f, rois = groups[k]
-            got = roi_pool_fc_backward(f, rois, g, 7, 7, scale)
-            want = roi_pool_grad(f, rois, g, 7, 7, scale)
+            got = kernel(f, rois, g, 7, 7, scale)
+            want = plain(f, rois, g, 7, 7, scale)
             torch.cuda.synchronize()
             _check(torch.equal(got != 0, want != 0),
-                   f"backward ({pattern}, {k}): nonzero positions differ")
+                   f"{tag} {pattern} {k}: nonzero positions differ")
             e = float((got - want).abs().max())
-            _check(e == 0.0, f"backward ({pattern}, {k}): max |diff| {e}")
+            _check(e == 0.0, f"{tag} {pattern} {k}: max |diff| {e}")
             err = max(err, e)
-            print(f"[backward] {pattern:5s} {k:4s} g {tuple(g.shape)}, "
+            print(f"{tag} {pattern:5s} {k:4s} g {tuple(g.shape)} {dtype}, "
                   f"{int(active_rows(g).sum())} active rows: identical "
                   f"nonzero positions ({int((got != 0).sum())}), max |diff|"
                   f" {e}", flush=True)
     # a tie: a constant map; every bin's whole cotangent lands on one cell
     f, rois = groups["sup"]
     f1 = torch.ones_like(f)
-    g1 = torch.ones((1, rois.shape[1], 49 * f.shape[-1]), device=eng.device)
-    got = roi_pool_fc_backward(f1, rois, g1, 7, 7, scale)
-    want = roi_pool_grad(f1, rois, g1, 7, 7, scale)
+    g1 = torch.ones((1, rois.shape[1], 49 * f.shape[-1]), device=eng.device,
+                    dtype=dtype)
+    got = kernel(f1, rois, g1, 7, 7, scale)
+    want = plain(f1, rois, g1, 7, 7, scale)
     nonempty = int((want != 0).sum())
-    _check(torch.equal(got, want), "backward (tie): kernel != plain")
+    _check(torch.equal(got, want), f"{tag} tie: kernel != plain")
     _check(bool((got == got.round()).all()),
-           "backward (tie): a bin's cotangent was split between cells")
-    print(f"[backward] tie   sup  constant map: kernel == plain, every bin's "
+           f"{tag} tie: a bin's cotangent was split between cells")
+    print(f"{tag} tie   sup  constant map: kernel == plain, every bin's "
           f"cotangent on one cell ({nonempty} cells hit, sum "
           f"{float(got.sum()):.0f})", flush=True)
 
@@ -487,25 +528,102 @@ def check_backward_kernel(eng, batch):
     per = {}
     for k, g in gs.items():
         f, rois = groups[k]
-        t = cuda_ms(lambda: roi_pool_fc_backward(f, rois, g, 7, 7, scale),
-                    20)
-        tp = cuda_ms(lambda: roi_pool_grad(f, rois, g, 7, 7, scale), 2,
-                     warmup=1)
+        t = cuda_ms(lambda: kernel(f, rois, g, 7, 7, scale), 20)
+        tp = cuda_ms(lambda: plain(f, rois, g, 7, 7, scale), 2, warmup=1)
         bnd, by = roi_pool_bwd_bound(f, rois, g, scale)
         per[k] = {"ms": t, "plain_ms": tp, "bound_ms": bnd, "bound_by": by,
                   "g_shape": list(g.shape)}
         ms, plain_ms, bound_ms = ms + t, plain_ms + tp, bound_ms + bnd
-        print(f"[backward] {k:4s} launch: kernel {t:.4f} ms, plain {tp:.3f} "
+        print(f"{tag} {k:4s} launch: kernel {t:.4f} ms, plain {tp:.3f} "
               f"ms, bound {bnd:.4f} ms by {by}", flush=True)
-    tdense = cuda_ms(lambda: roi_pool_fc_backward(
-        *groups["weak"], cases["dense"]["weak"], 7, 7, scale), 5)
-    print(f"[backward] weak launch with a dense cotangent (all 4000 rows): "
+    tdense = cuda_ms(lambda: kernel(*groups["weak"], cases["dense"]["weak"],
+                                    7, 7, scale), 5)
+    print(f"{tag} weak launch with a dense cotangent (all 4000 rows): "
           f"kernel {tdense:.4f} ms", flush=True)
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": "bytes" if all(
                 v["bound_by"] == "bytes" for v in per.values())
             else "operations", "per_launch": per,
             "dense_weak_ms": tdense}
+
+
+def check_bf16_forward(eng, groups):
+    """Phase 8a: the bf16 forward kernel against its plain version at the
+    combined step's two launches; times and bounds summed over the two."""
+    import torch
+
+    from wssdl_bus_tpu_torch.ops.roi_pool_cuda import (roi_pool_fc,
+                                                       roi_pool_fc_plain)
+
+    scale = 1.0 / eng.cfg.FEAT_STRIDE
+    bf16 = torch.bfloat16
+    err = ms = plain_ms = bound_ms = 0.0
+    with torch.no_grad():
+        for k, (f, rois) in groups.items():
+            got = roi_pool_fc(f, rois, 7, 7, scale, out_dtype=bf16)
+            want = roi_pool_fc_plain(f, rois, 7, 7, scale, out_dtype=bf16)
+            f32 = roi_pool_fc(f, rois, 7, 7, scale)
+            torch.cuda.synchronize()
+            _check(got.dtype == bf16 and torch.equal(got, want),
+                   f"bf16 forward ({k}): kernel != plain")
+            _check(torch.equal(got, f32.to(bf16)),
+                   f"bf16 forward ({k}): != the rounded f32 forward")
+            err = max(err, float((got.float() - want.float()).abs().max()))
+            t = cuda_ms(lambda: roi_pool_fc(f, rois, 7, 7, scale,
+                                            out_dtype=bf16), 20)
+            tp = cuda_ms(lambda: roi_pool_fc_plain(f, rois, 7, 7, scale,
+                                                   out_dtype=bf16), 2,
+                         warmup=1)
+            bnd, by = roi_pool_bound(f, rois, scale, out_bytes=2)
+            ms, plain_ms, bound_ms = ms + t, plain_ms + tp, bound_ms + bnd
+            print(f"[pool-bf16] forward {k:4s} {tuple(got.shape)}: kernel =="
+                  f" plain == bf16(f32 forward); kernel {t:.4f} ms, plain "
+                  f"{tp:.3f} ms, bound {bnd:.4f} ms by {by}", flush=True)
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": by}
+
+
+def run_bf16_pool_path(eng, groups):
+    """Phase 8c: the bf16 option's own path, ``roi_pool_fc(...,
+    out_dtype=bfloat16)`` under autograd, on the step's two groups with the
+    MIL-pattern cotangent, counters set to 0 just before; dfeat against the
+    plain version's autograd.  -> the launch counts."""
+    import torch
+
+    from wssdl_bus_tpu_torch.ops.roi_pool_cuda import (roi_pool_fc,
+                                                       roi_pool_fc_plain)
+
+    scale = 1.0 / eng.cfg.FEAT_STRIDE
+    gen = torch.Generator(device=eng.device).manual_seed(2)
+    cots = {}
+    for k, (f, rois) in groups.items():
+        g = torch.randn((rois.shape[0], rois.shape[1], 49 * f.shape[-1]),
+                        generator=gen, device=eng.device)
+        if k == "weak":
+            g[:, 1:] = 0.0
+        cots[k] = g.to(torch.bfloat16)
+    reset_counts()
+    grads = {}
+    for k, (f, rois) in groups.items():
+        fk = f.detach().requires_grad_(True)
+        roi_pool_fc(fk, rois, 7, 7, scale, out_dtype=torch.bfloat16) \
+            .backward(cots[k])
+        grads[k] = fk.grad
+    torch.cuda.synchronize()
+    counts = read_counts()
+    for k, (f, rois) in groups.items():
+        fp = f.detach().requires_grad_(True)
+        roi_pool_fc_plain(fp, rois, 7, 7, scale, out_dtype=torch.bfloat16) \
+            .backward(cots[k])
+        _check(grads[k].dtype == torch.float32
+               and torch.equal(grads[k], fp.grad),
+               f"bf16 pool path ({k}): dfeat != the plain autograd's")
+    check_counts(counts, {"roi_pool_fc_bf16": 2,
+                          "roi_pool_fc_backward_bf16": 2}, "bf16 pool path")
+    print(f"[pool-bf16] roi_pool_fc(out_dtype=bf16) under autograd on the "
+          f"two groups: launches {counts}; f32 dfeat == the plain "
+          f"version's autograd", flush=True)
+    return counts
 
 
 def run_training(eng, joint, weak):
@@ -641,6 +759,243 @@ def check_train_parity(model, cfg, canvas, batch, device="cuda"):
     return {"loss_rel_err": loss_err, "param_abs_err": param_err}
 
 
+def kernel_wrappers() -> dict:
+    """Every kernel wrapper of the port by name; each counts its launches."""
+    from wssdl_bus_tpu_torch.ops.conv1_cuda import vgg_stem_fused
+    from wssdl_bus_tpu_torch.ops.conv2_pool_cuda import vgg_conv2_pool
+    from wssdl_bus_tpu_torch.ops.nms_cuda import nms_keep
+    from wssdl_bus_tpu_torch.ops.roi_pool_cuda import (
+        roi_pool_fc, roi_pool_fc_backward, roi_pool_fc_backward_bf16,
+        roi_pool_fc_bf16)
+
+    return {f.__name__: f for f in (
+        nms_keep, roi_pool_fc, roi_pool_fc_backward, roi_pool_fc_bf16,
+        roi_pool_fc_backward_bf16, vgg_stem_fused, vgg_conv2_pool)}
+
+
+def reset_counts():
+    for f in kernel_wrappers().values():
+        f.launches = 0
+
+
+def read_counts() -> dict:
+    return {n: f.launches for n, f in kernel_wrappers().items()}
+
+
+def check_counts(counts: dict, want: dict, what: str):
+    """Every wrapper launched exactly ``want[name]`` times (0 if absent)."""
+    for name, n in counts.items():
+        _check(n == want.get(name, 0), f"{what}: {name} launched {n} times,"
+               f" expected {want.get(name, 0)}")
+
+
+def stem_bounds(b: int, h: int, w: int) -> dict:
+    """name -> (bound_ms, bound_by, flops) at an [b, h, w] image batch:
+    the fused stem's 27 + 576 and the tail's 576 multiply-adds per output
+    pixel and channel at the dense bf16 tensor-core rate, against x (f32)
+    or a1 (bf16) read once, the weights read once and the pooled f32 output
+    written once."""
+    out = b * (h // 2) * (w // 2) * 64 * 4
+    work = {"vgg_stem_fused": (2 * b * h * w * 64 * (27 + 576),
+                               b * h * w * 3 * 4 + out + (27 + 576 + 2) * 256),
+            "vgg_conv2_pool": (2 * b * h * w * 64 * 576,
+                               b * h * w * 64 * 2 + out + (576 + 1) * 256)}
+    res = {}
+    for name, (flops, nbytes) in work.items():
+        t_ops, t_bytes = flops / BF16_OPS_PER_S, nbytes / HBM_BYTES_PER_S
+        res[name] = (max(t_ops, t_bytes) * 1e3,
+                     "operations" if t_ops >= t_bytes else "bytes", flops)
+    return res
+
+
+def check_stem_kernels(model, x, tag: str) -> dict:
+    """Phase 7: both stem kernels against their plain versions on the image
+    batch ``x`` [B, H, W, 3] with TF32 off (max |diff| must be 0), with
+    CUDA-event times of the kernel, of the plain version and of the cuDNN
+    composition of the same layers in bf16 channels_last (its rounding
+    differs: bf16 outputs; a yardstick, not a port)."""
+    import torch
+    import torch.nn.functional as F
+
+    from wssdl_bus_tpu_torch.models.detector import _hwio
+    from wssdl_bus_tpu_torch.ops.conv1 import vgg_stem_plain
+    from wssdl_bus_tpu_torch.ops.conv1_cuda import vgg_stem_fused
+    from wssdl_bus_tpu_torch.ops.conv2_pool import (vgg_conv1_1,
+                                                    vgg_conv2_pool_plain)
+    from wssdl_bus_tpu_torch.ops.conv2_pool_cuda import vgg_conv2_pool
+
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    bb = model.trunk.backbone
+    w1, b1 = _hwio(bb.conv1_1)
+    w2, b2 = _hwio(bb.conv1_2)
+    bf16, cl = torch.bfloat16, torch.channels_last
+    lib_w = [t.to(bf16).contiguous(memory_format=cl) if t.ndim == 4
+             else t.to(bf16) for t in (bb.conv1_1.conv.weight,
+                                       bb.conv1_1.conv.bias,
+                                       bb.conv1_2.conv.weight,
+                                       bb.conv1_2.conv.bias)]
+    stats = {}
+    with torch.no_grad():
+        a1 = vgg_conv1_1(x, w1, b1, out_dtype=bf16)
+        xb = x.permute(0, 3, 1, 2).to(bf16)
+        a1n = a1.permute(0, 3, 1, 2)
+        runs = {
+            "vgg_stem_fused": (
+                lambda: vgg_stem_fused(x, w1, b1, w2, b2),
+                lambda: vgg_stem_plain(x, w1, b1, w2, b2),
+                lambda: F.max_pool2d(F.relu(F.conv2d(F.relu(F.conv2d(
+                    xb, lib_w[0], lib_w[1], padding=1)), lib_w[2], lib_w[3],
+                    padding=1)), 2, 2)),
+            "vgg_conv2_pool": (
+                lambda: vgg_conv2_pool(a1, w2, b2),
+                lambda: vgg_conv2_pool_plain(a1, w2, b2),
+                lambda: F.max_pool2d(F.relu(F.conv2d(
+                    a1n, lib_w[2], lib_w[3], padding=1)), 2, 2)),
+        }
+        bounds = stem_bounds(*x.shape[:3])
+        for name, (kernel, plain, library) in runs.items():
+            got = kernel()
+            want = plain()
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            _check(got.shape == want.shape and err == 0.0,
+                   f"{name} ({tag}): max |diff| {err} against the plain "
+                   "version")
+            del want
+            ms = cuda_ms(kernel, 5, warmup=1)
+            plain_ms = cuda_ms(plain, 1, warmup=0)
+            library_ms = cuda_ms(library, 10)
+            bnd, by, flops = bounds[name]
+            stats[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                           "bound_ms": bnd, "bound_by": by,
+                           "library_ms": library_ms,
+                           "input_shape": list(x.shape)}
+            print(f"[stem] {name} {tag} x {tuple(x.shape)} -> "
+                  f"{tuple(got.shape)}: max |diff| vs plain {err}; kernel "
+                  f"{ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain "
+                  f"{plain_ms:.3f} ms, cuDNN bf16 composition "
+                  f"{library_ms:.4f} ms, bound {bnd:.4f} ms by {by}",
+                  flush=True)
+    torch.backends.cudnn.allow_tf32 = tf32
+    return stats
+
+
+def run_stem_path(name, eng, requests, net, teng, joint, weak, smi) -> dict:
+    """Phase 9: serve and train with ``name``'s variable set: counters read
+    around the served run (3 batch-1 + 1 batch-8 requests) and around the
+    training run (3 combined + 1 MIL steps); ms/image, ms/step, peak
+    memory.  The variable is restored afterwards."""
+    import torch
+
+    var = STEM_PATHS[name]
+    os.environ[var] = "1"
+    try:
+        reset_counts()
+        served = serve(eng, requests[:BATCH_1_REQUESTS], net, 1) \
+            + serve(eng, requests, net, BATCH)
+        torch.cuda.synchronize()
+        serve_counts = read_counts()
+        n = BATCH_1_REQUESTS + 1
+        check_counts(serve_counts, {"nms_keep": n, "roi_pool_fc": n,
+                                    name: n}, f"{var}=1 serving")
+        for scores, boxes, _ in served:
+            _check(np.isfinite(scores).all() and np.isfinite(boxes).all()
+                   and boxes.shape == (scores.shape[0], 12),
+                   f"{var}=1: non-finite or misshapen detections")
+        perf = {b: time_serving(eng, requests, net, b) for b in (1, BATCH)}
+        for b, t in perf.items():
+            print(f"[{var}] batch {b}: {t['ms_per_image']:.3f} ms/image end"
+                  f" to end, device step {t['device_step_ms_per_image']:.3f}"
+                  f"; peak {t['peak_bytes'] / 2**20:.1f} MiB; {smi}",
+                  flush=True)
+
+        model = teng.model
+        before = {k: v.clone() for k, v in model.state_dict().items()}
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        rows, step_ms, mil, mil_ms = run_training(teng, joint, weak)
+        torch.cuda.synchronize()
+        train_counts = read_counts()
+        check_counts(train_counts, {
+            "nms_keep": TRAIN_STEPS + 1, "roi_pool_fc": 2 * TRAIN_STEPS + 1,
+            "roi_pool_fc_backward": 2 * TRAIN_STEPS + 1,
+            name: TRAIN_STEPS + 1}, f"{var}=1 training")
+        peak = torch.cuda.max_memory_allocated()
+        after = model.state_dict()
+        frozen = [k for k in after if ".conv1_" in k or ".conv2_" in k]
+        _check(all(torch.equal(before[k], after[k]) for k in frozen),
+               f"{var}=1: conv1/conv2 parameters changed")
+        step_time = time_train_step(teng, joint[-1])
+    finally:
+        del os.environ[var]
+    print(f"[{var}] launches: serving {serve_counts}, training "
+          f"{train_counts}; training: losses finite, conv1/conv2 bitwise "
+          f"unchanged, combined step {step_time:.3f} ms by CUDA events, "
+          f"MIL step {mil_ms:.2f} ms host clock, peak "
+          f"{peak / 2**20:.1f} MiB; {smi}", flush=True)
+    return {"serve_launches": serve_counts, "train_launches": train_counts,
+            "serving": {str(b): v for b, v in perf.items()},
+            "training": {"losses": rows, "mil_step_loss": mil,
+                         "step_ms_cuda_events": step_time,
+                         "step_ms_host": step_ms, "mil_step_ms_host": mil_ms,
+                         "peak_bytes": peak}}
+
+
+def check_serve_parity(eng, eng_plain, requests, net, what: str):
+    """Phase 6a/9: the served requests through the kernels and through the
+    plain versions: keep sets and proposal boxes identical, class
+    probabilities to 1e-6, reported detections identical.  -> the
+    kernels' detections."""
+    import torch
+
+    outs_k = eng.inference_step(*_packed(eng, requests, net))
+    outs_p = eng_plain.inference_step(*_packed(eng, requests, net))
+    _check(torch.equal(outs_k[1], outs_p[1]), f"{what}: valid masks differ")
+    _check(torch.equal(outs_k[0], outs_p[0]),
+           f"{what}: proposal boxes differ")
+    prob_err = float((outs_k[3] - outs_p[3]).abs().max())
+    # identical pooled features feed identical head kernels: the tolerance
+    # allows only f32 reassociation in the head's matmuls
+    _check(prob_err <= 1e-6, f"{what}: cls_prob differs by {prob_err} > "
+           "1e-6")
+    det_k = serve(eng, requests, net, BATCH)
+    det_p = serve(eng_plain, requests, net, BATCH)
+    for (_, _, ek), (_, _, ep) in zip(det_k, det_p):
+        _check(ek == ep, f"{what}: served detections differ from the "
+               "plain run")
+    print(f"[parity] {what} (TF32 off): kernels vs plain versions on the "
+          f"card: keep sets and proposal boxes identical, max |d cls_prob| "
+          f"{prob_err}, reported detections identical", flush=True)
+    return det_k
+
+
+def stem_distance(eng, requests, net, det_default, name) -> dict:
+    """For information only: how far ``name``'s stem path (bf16 rounding,
+    the JAX package's accepted numerics) moves the features and the served
+    detections from the default f32 stem, both with TF32 off."""
+    import torch
+
+    data, _ = _packed(eng, requests, net)
+    data = torch.as_tensor(data, device=eng.device)
+    with torch.no_grad():
+        base = eng.model.apply_trunk(data)[0]
+        os.environ[STEM_PATHS[name]] = "1"
+        try:
+            feat = eng.model.apply_trunk(data)[0]
+            det = serve(eng, requests, net, BATCH)
+        finally:
+            del os.environ[STEM_PATHS[name]]
+    rel = float((feat - base).abs().max() / base.abs().max())
+    same = sum(int(a[2] == b[2]) for a, b in zip(det, det_default))
+    n_dets = sum(len(e) for _, _, e in det)
+    print(f"[info] {STEM_PATHS[name]}=1 vs the default f32 stem (TF32 off):"
+          f" conv5_3 features max |diff| {rel:.3e} of their max; reported "
+          f"detections identical for {same} of {len(det)} requests "
+          f"({n_dets} detections)", flush=True)
+    return {"feat_rel_max_diff": rel, "requests_identical": same}
+
+
 def main() -> int:
     import torch
 
@@ -652,14 +1007,13 @@ def main() -> int:
     from wssdl_bus_tpu_torch.models.convert import he_init_
     from wssdl_bus_tpu_torch.models.detector import build_detector
     from wssdl_bus_tpu_torch.ops import _build
-    from wssdl_bus_tpu_torch.ops.nms_cuda import nms_keep
-    from wssdl_bus_tpu_torch.ops.roi_pool_cuda import (roi_pool_fc,
-                                                       roi_pool_fc_backward)
     from wssdl_bus_tpu_torch.train.engine import Engine
 
     t_start = time.perf_counter()
     profile = "--profile" in sys.argv[1:]
     out_dir = os.path.join(REPO, "chiprun_out")
+    for var in STEM_PATHS.values():     # the default paths run without them
+        os.environ.pop(var, None)
     # phase 1: device
     kind = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
@@ -693,23 +1047,17 @@ def main() -> int:
     stats = check_kernels(eng, requests, net)
 
     # phase 4a: the served path through the kernels, counters around it
-    nms_keep.launches = 0
-    roi_pool_fc.launches = 0
-    roi_pool_fc_backward.launches = 0
+    reset_counts()
     served_1 = serve(eng, requests[:BATCH_1_REQUESTS], net, 1)
     served_8 = serve(eng, requests, net, BATCH)
     torch.cuda.synchronize()
-    serve_launches = {"nms_keep": nms_keep.launches,
-                      "roi_pool_fc": roi_pool_fc.launches,
-                      "roi_pool_fc_backward": roi_pool_fc_backward.launches}
+    serve_launches = read_counts()
     want = BATCH_1_REQUESTS + 1
     print(f"[serve] launches during the served run: {serve_launches} "
           f"(expected {want} for the two forward kernels: one per served "
-          f"batch)", flush=True)
-    for name in ("nms_keep", "roi_pool_fc"):
-        _check(serve_launches[name] == want,
-               f"{name} launched {serve_launches[name]} times, expected "
-               f"{want}")
+          f"batch; none for the opt-in stem kernels)", flush=True)
+    check_counts(serve_launches, {"nms_keep": want, "roi_pool_fc": want},
+                 "serving")
     for scores, boxes, _ in served_1 + served_8:
         _check(scores.ndim == 2 and scores.shape[1] == 3
                and boxes.shape == (scores.shape[0], 12),
@@ -757,30 +1105,25 @@ def main() -> int:
           f"adam lr {t.LEARNING_RATE}, MIL {teng.selector_pair}", flush=True)
 
     # phase 5a: the backward kernel at the step's shapes
-    stats["roi_pool_fc_backward"] = check_backward_kernel(teng, joint[0])
+    groups = training_groups(teng, joint[0])
+    stats["roi_pool_fc_backward"] = check_backward_kernel(teng, groups,
+                                                          torch.float32)
 
     # phase 5b: 3 combined steps + 1 MIL step, counters around them
     before = {k: v.clone() for k, v in tmodel.state_dict().items()}
     torch.cuda.reset_peak_memory_stats()
-    nms_keep.launches = 0
-    roi_pool_fc.launches = 0
-    roi_pool_fc_backward.launches = 0
+    reset_counts()
     rows, step_ms, mil, mil_ms = run_training(teng, joint, weak)
     torch.cuda.synchronize()
-    train_launches = {"nms_keep": nms_keep.launches,
-                      "roi_pool_fc": roi_pool_fc.launches,
-                      "roi_pool_fc_backward": roi_pool_fc_backward.launches}
+    train_launches = read_counts()
     expect = {"nms_keep": TRAIN_STEPS + 1,
               "roi_pool_fc": 2 * TRAIN_STEPS + 1,
               "roi_pool_fc_backward": 2 * TRAIN_STEPS + 1}
     print(f"[train] launches during the training run: {train_launches} "
           f"(expected {expect}: NMS once per step, the pool forward and "
-          f"backward twice per combined step and once per MIL step)",
-          flush=True)
-    for name, n in expect.items():
-        _check(train_launches[name] == n,
-               f"{name} launched {train_launches[name]} times in training, "
-               f"expected {n}")
+          f"backward twice per combined step and once per MIL step; none "
+          f"for the stem kernels)", flush=True)
+    check_counts(train_launches, expect, "training")
     peak = torch.cuda.max_memory_allocated()
     after = tmodel.state_dict()
     frozen = [k for k in after if ".conv1_" in k or ".conv2_" in k]
@@ -801,38 +1144,71 @@ def main() -> int:
     if profile:
         profile_train(teng, joint[-1], out_dir)
 
-    # phase 6: parity with the plain versions, TF32 off on both sides so
-    # the trunks are bit-identical
+    # phase 7: the stem kernels at the served and the training shapes
+    serve_x = torch.as_tensor(_packed(eng, requests, net)[0], device="cuda")
+    train_x = torch.as_tensor(joint[0]["data"], device="cuda")
+    stem_stats = {"serve": check_stem_kernels(model, serve_x, "serve B=8"),
+                  "train": check_stem_kernels(tmodel, train_x, "train B=3")}
+    del serve_x, train_x
+
+    # phase 8: the bf16 output option of the ROI pool at the training shapes
+    stats["roi_pool_fc_bf16"] = check_bf16_forward(teng, groups)
+    stats["roi_pool_fc_backward_bf16"] = check_backward_kernel(
+        teng, groups, torch.bfloat16)
+    bf16_launches = run_bf16_pool_path(teng, groups)
+    del groups
+
+    # phase 9: the opt-in stem paths, serving and training
+    stem_runs = {name: run_stem_path(name, eng, requests, net, teng, joint,
+                                     weak, smi) for name in STEM_PATHS}
+
+    # phase 6 (and 9): parity with the plain versions, TF32 off on both
+    # sides so the trunks are bit-identical
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.benchmark = False
     torch.backends.cudnn.deterministic = True
     eng_plain = Engine(model, cfg, canvas, plain_ops=True)
-    outs_k = eng.inference_step(*_packed(eng, requests, net))
-    outs_p = eng_plain.inference_step(*_packed(eng, requests, net))
-    _check(torch.equal(outs_k[1], outs_p[1]), "valid masks differ")
-    _check(torch.equal(outs_k[0], outs_p[0]), "proposal boxes differ")
-    prob_err = float((outs_k[3] - outs_p[3]).abs().max())
-    # identical pooled features feed identical head kernels: the tolerance
-    # allows only f32 reassociation in the head's matmuls
-    _check(prob_err <= 1e-6, f"cls_prob differs by {prob_err} > 1e-6")
-    det_k = serve(eng, requests, net, BATCH)
-    det_p = serve(eng_plain, requests, net, BATCH)
-    for (_, _, ek), (_, _, ep) in zip(det_k, det_p):
-        _check(ek == ep, "served detections differ from the plain run")
-    print(f"[parity] f32 (TF32 off): kernels vs plain versions on the card: "
-          f"keep sets and proposal boxes identical, max |d cls_prob| "
-          f"{prob_err}, reported detections identical", flush=True)
-    train_parity = check_train_parity(tmodel, tcfg, tcanvas, joint[0])
+    det_default = check_serve_parity(eng, eng_plain, requests, net,
+                                     "f32 default stem")
+    parity = {"train": check_train_parity(tmodel, tcfg, tcanvas, joint[0])}
+    for name, var in STEM_PATHS.items():
+        os.environ[var] = "1"
+        try:
+            check_serve_parity(eng, eng_plain, requests, net, f"{var}=1")
+            parity[name] = check_train_parity(tmodel, tcfg, tcanvas,
+                                              joint[0])
+        finally:
+            del os.environ[var]
+        parity[name]["vs_default_stem"] = stem_distance(
+            eng, requests, net, det_default, name)
     tmp.cleanup()
 
-    def launches(name):
-        return {"launches": serve_launches[name] + train_launches[name],
-                "launches_by_path": {"serve": serve_launches[name],
-                                     "train": train_launches[name]}}
+    paths = {"serve": serve_launches, "train": train_launches,
+             "bf16_pool": bf16_launches}
+    for name, run in stem_runs.items():
+        paths[f"serve_{STEM_PATHS[name]}"] = run["serve_launches"]
+        paths[f"train_{STEM_PATHS[name]}"] = run["train_launches"]
 
-    bwd = {k: v for k, v in stats["roi_pool_fc_backward"].items()
-           if k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")}
+    def launches(name):
+        by_path = {p: c[name] for p, c in paths.items()}
+        _check(sum(by_path.values()) > 0, f"{name} never launched on its "
+               "path")
+        return {"launches": sum(by_path.values()),
+                "launches_by_path": by_path}
+
+    def kernel_stats(st):
+        return {k: st[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                   "bound_ms", "bound_by")}
+
+    def stem_entry(name, source, replaces):
+        sv, tr = stem_stats["serve"][name], stem_stats["train"][name]
+        return dict(name=name, route="cuda", source=source, replaces=replaces,
+                    **launches(name), **kernel_stats(sv),
+                    library_ms=sv["library_ms"],
+                    max_abs_err_train=tr["max_abs_err"],
+                    per_shape={"serve": sv, "train": tr})
+
     kernels = [
         dict(name="nms_keep", route="cuda",
              source="wssdl_bus_tpu_torch/csrc/nms.cu",
@@ -846,7 +1222,22 @@ def main() -> int:
         dict(name="roi_pool_fc_backward", route="cuda",
              source="wssdl_bus_tpu_torch/csrc/roi_pool.cu",
              replaces="wssdl_bus_tpu/ops/roi_pool_pallas.py:140",
-             library_ms=None, **launches("roi_pool_fc_backward"), **bwd),
+             library_ms=None, **launches("roi_pool_fc_backward"),
+             **kernel_stats(stats["roi_pool_fc_backward"])),
+        dict(name="roi_pool_fc_bf16", route="cuda",
+             source="wssdl_bus_tpu_torch/csrc/roi_pool.cu",
+             replaces="wssdl_bus_tpu/ops/roi_pool_pallas.py:373",
+             library_ms=None, **launches("roi_pool_fc_bf16"),
+             **kernel_stats(stats["roi_pool_fc_bf16"])),
+        dict(name="roi_pool_fc_backward_bf16", route="cuda",
+             source="wssdl_bus_tpu_torch/csrc/roi_pool.cu",
+             replaces="wssdl_bus_tpu/ops/roi_pool_pallas.py:426",
+             library_ms=None, **launches("roi_pool_fc_backward_bf16"),
+             **kernel_stats(stats["roi_pool_fc_backward_bf16"])),
+        stem_entry("vgg_stem_fused", "wssdl_bus_tpu_torch/csrc/conv1.cu",
+                   "wssdl_bus_tpu/ops/conv1_pallas.py:141"),
+        stem_entry("vgg_conv2_pool", "wssdl_bus_tpu_torch/csrc/conv2_pool.cu",
+                   "wssdl_bus_tpu/ops/conv2_pool_pallas.py:196"),
     ]
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"serving": {str(b): v for b, v in perf.items()},
@@ -854,14 +1245,20 @@ def main() -> int:
                                    "step_ms_cuda_events": step_time,
                                    "step_ms_host": step_ms,
                                    "mil_step_ms_host": mil_ms,
-                                   "peak_bytes": peak,
-                                   "parity": train_parity,
-                                   "backward_per_launch":
-                                       stats["roi_pool_fc_backward"][
-                                           "per_launch"],
-                                   "backward_dense_weak_ms":
-                                       stats["roi_pool_fc_backward"][
-                                           "dense_weak_ms"]},
+                                   "peak_bytes": peak},
+                      "parity": parity,
+                      "backward_per_launch": {
+                          k: stats[k]["per_launch"] for k in (
+                              "roi_pool_fc_backward",
+                              "roi_pool_fc_backward_bf16")},
+                      "backward_dense_weak_ms": {
+                          k: stats[k]["dense_weak_ms"] for k in (
+                              "roi_pool_fc_backward",
+                              "roi_pool_fc_backward_bf16")},
+                      "stem_paths": {STEM_PATHS[n]: {
+                          k: v for k, v in r.items() if k in (
+                              "serving", "training")}
+                          for n, r in stem_runs.items()},
                       "card": smi}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -12,11 +12,17 @@ import numpy as np
 import pytest
 import torch
 
+from wssdl_bus_tpu_torch.ops.conv1 import vgg_stem_plain
+from wssdl_bus_tpu_torch.ops.conv1_cuda import vgg_stem_fused
+from wssdl_bus_tpu_torch.ops.conv2_pool import vgg_conv2_pool_plain
+from wssdl_bus_tpu_torch.ops.conv2_pool_cuda import vgg_conv2_pool
 from wssdl_bus_tpu_torch.ops.nms import nms_mask
 from wssdl_bus_tpu_torch.ops.nms_cuda import nms_keep
-from wssdl_bus_tpu_torch.ops.roi_pool import roi_pool_grad
+from wssdl_bus_tpu_torch.ops.roi_pool import roi_pool_grad, roi_pool_grad_bf16
 from wssdl_bus_tpu_torch.ops.roi_pool_cuda import (roi_pool_fc,
                                                    roi_pool_fc_backward,
+                                                   roi_pool_fc_backward_bf16,
+                                                   roi_pool_fc_bf16,
                                                    roi_pool_fc_plain,
                                                    roi_pool_grouped)
 
@@ -178,3 +184,131 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     boxes = torch.zeros(1, 4, 8, device=cuda)
     with pytest.raises(TypeError):
         nms_keep(boxes, torch.ones(1, 8, device=cuda), 0.7)
+
+
+@pytest.mark.parametrize("b,p,h,w,c", [
+    (8, 300, 38, 51, 512),   # the served path's shapes
+    (2, 37, 7, 9, 12),
+])
+def test_roi_pool_bf16_forward_matches_plain(cuda, b, p, h, w, c):
+    rng = np.random.RandomState(p)
+    feat = torch.from_numpy(rng.randn(b, h, w, c).astype(np.float32)).to(cuda)
+    rois = torch.from_numpy(_rois(rng, b, p, h, w)).to(cuda)
+    before = roi_pool_fc_bf16.launches
+    got = roi_pool_fc(feat, rois, out_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert roi_pool_fc_bf16.launches == before + 1
+    assert got.dtype == torch.bfloat16
+    want = roi_pool_fc_plain(feat, rois, out_dtype=torch.bfloat16)
+    assert torch.equal(got, want)
+    assert torch.equal(got, roi_pool_fc(feat, rois).to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("b,p,h,w,c,pattern", [
+    (1, 128, 38, 56, 512, "dense"),   # the supervised group of a train step
+    (2, 2000, 38, 56, 512, "mil"),    # the weak group
+    (2, 37, 7, 9, 12, "dense"),
+])
+def test_roi_pool_bf16_backward_matches_plain(cuda, b, p, h, w, c, pattern):
+    """Identical dfeat with routing on bf16(feat): a post-ReLU map whose
+    values, rounded to bf16, tie often."""
+    rng = np.random.RandomState(p + c)
+    feat = np.maximum(rng.randn(b, h, w, c), 0).astype(np.float32)
+    feat = torch.from_numpy(feat).to(cuda)
+    rois = torch.from_numpy(_rois(rng, b, p, h, w)).to(cuda)
+    g = torch.from_numpy(_cotangent(rng, b, p, 49 * c, pattern)).to(cuda) \
+        .to(torch.bfloat16)
+    before = roi_pool_fc_backward_bf16.launches
+    got = roi_pool_fc_backward_bf16(feat, rois, g)
+    torch.cuda.synchronize()
+    assert roi_pool_fc_backward_bf16.launches == before + 1
+    want = roi_pool_grad_bf16(feat, rois, g)
+    assert got.dtype == torch.float32
+    assert torch.equal(got != 0, want != 0)
+    assert torch.equal(got, want)
+
+
+def test_roi_pool_bf16_autograd_on_the_card(cuda):
+    rng = np.random.RandomState(1)
+    feat = torch.from_numpy(rng.randn(2, 12, 15, 16).astype(np.float32))
+    rois = torch.from_numpy(_rois(rng, 2, 40, 12, 15)).to(cuda)
+    g = torch.from_numpy(rng.randn(2, 40, 49 * 16).astype(np.float32)) \
+        .to(cuda).to(torch.bfloat16)
+    fk = feat.to(cuda).requires_grad_(True)
+    fp = feat.to(cuda).requires_grad_(True)
+    counts = (roi_pool_fc_bf16.launches, roi_pool_fc_backward_bf16.launches,
+              roi_pool_fc_backward.launches)
+    out = roi_pool_fc(fk, rois, out_dtype=torch.bfloat16)
+    out.backward(g)
+    roi_pool_fc_plain(fp, rois, out_dtype=torch.bfloat16).backward(g)
+    torch.cuda.synchronize()
+    assert (roi_pool_fc_bf16.launches, roi_pool_fc_backward_bf16.launches,
+            roi_pool_fc_backward.launches) == \
+        (counts[0] + 1, counts[1] + 1, counts[2])
+    assert fk.grad.dtype == torch.float32
+    assert torch.equal(fk.grad, fp.grad)
+
+
+def _stem_weights(rng, cuda):
+    w1 = rng.randn(3, 3, 3, 64) * np.sqrt(2 / 27) / 64
+    w2 = rng.randn(3, 3, 64, 64) * np.sqrt(2 / 576)
+    return [torch.from_numpy(a.astype(np.float32)).to(cuda)
+            for a in (w1, rng.randn(64) * 0.1, w2, rng.randn(64) * 0.1)]
+
+
+@pytest.mark.parametrize("shape", [
+    (8, 608, 816, 3),    # the served batch
+    (3, 608, 896, 3),    # the training batch
+    (1, 16, 16, 3),
+    (2, 48, 20, 3),      # W not a multiple of the 16-wide tile
+])
+def test_stem_kernel_matches_plain(cuda, shape):
+    """Bit for bit: the same exact bf16 products summed in one order."""
+    rng = np.random.RandomState(shape[2])
+    x = torch.from_numpy((rng.randn(*shape) * 50).astype(np.float32)).to(cuda)
+    w1, b1, w2, b2 = _stem_weights(rng, cuda)
+    before = vgg_stem_fused.launches
+    got = vgg_stem_fused(x, w1, b1, w2, b2)
+    torch.cuda.synchronize()
+    assert vgg_stem_fused.launches == before + 1
+    want = vgg_stem_plain(x, w1, b1, w2, b2)
+    assert got.shape == (shape[0], shape[1] // 2, shape[2] // 2, 64)
+    assert float((got - want).abs().max()) == 0.0
+    assert (got > 0).float().mean() > 0.2
+
+
+@pytest.mark.parametrize("shape", [
+    (8, 608, 816, 64),
+    (3, 608, 896, 64),
+    (1, 16, 32, 64),
+    (2, 48, 80, 64),
+])
+def test_stem_tail_kernel_matches_plain(cuda, shape):
+    rng = np.random.RandomState(shape[2])
+    a1 = torch.from_numpy(np.abs(rng.randn(*shape)).astype(np.float32)) \
+        .to(cuda).to(torch.bfloat16)
+    _, _, w2, b2 = _stem_weights(rng, cuda)
+    before = vgg_conv2_pool.launches
+    got = vgg_conv2_pool(a1, w2, b2)
+    torch.cuda.synchronize()
+    assert vgg_conv2_pool.launches == before + 1
+    want = vgg_conv2_pool_plain(a1, w2, b2)
+    assert float((got - want).abs().max()) == 0.0
+    assert (got > 0).float().mean() > 0.2
+
+
+def test_stem_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    x = torch.zeros(1, 16, 16, 3, device=cuda)
+    w1 = torch.zeros(3, 3, 3, 64, device=cuda)
+    b = torch.zeros(64, device=cuda)
+    w2 = torch.zeros(3, 3, 64, 64, device=cuda)
+    with pytest.raises(ValueError, match="chunking"):
+        vgg_stem_fused(x[:, :8], w1, b, w2, b)
+    with pytest.raises(TypeError):
+        vgg_stem_fused(x.double(), w1, b, w2, b)
+    with pytest.raises(TypeError):
+        vgg_stem_fused(x, w1.cpu(), b, w2, b)
+    with pytest.raises(ValueError):
+        vgg_stem_fused(x, w1.permute(0, 1, 3, 2), b, w2, b)
+    with pytest.raises(ValueError, match="chunking"):
+        vgg_conv2_pool(torch.zeros(1, 16, 24, 64, device=cuda), w2, b)

@@ -24,7 +24,12 @@ VGG16_STAGES = (
 
 
 class VGG16Backbone(nn.Module):
-    """[B, 3, H, W] -> [B, 512, H/16, W/16] (floor at every pool)."""
+    """[B, 3, H, W] -> [B, 512, H/16, W/16] (floor at every pool).
+
+    ``stem_done=True`` means ``x`` is already the pooled conv1 output
+    [B, 64, H/2, W/2] (the stem kernels, ``ops/conv1_cuda.py`` /
+    ``ops/conv2_pool_cuda.py``) and conv1_1 / conv1_2 / pool1 are skipped;
+    the parameters are the same either way."""
 
     out_channels = 512
 
@@ -36,8 +41,10 @@ class VGG16Backbone(nn.Module):
                 self.add_module(name, ConvBlock(in_ch, ch, 3))
                 in_ch = ch
 
-    def forward(self, x):
+    def forward(self, x, stem_done: bool = False):
         for s, stage in enumerate(VGG16_STAGES):
+            if stem_done and s == 0:
+                continue
             for name, _ in stage:
                 x = getattr(self, name)(x)
             if s < len(VGG16_STAGES) - 1:

@@ -20,6 +20,8 @@ exact, so this equals the kernel bit for bit.
 ``roi_pool_bwd`` and the counterpart of the Pallas kernel
 ``wssdl_bus_tpu/ops/roi_pool_pallas.py:_bwd_kernel``, whose placement and
 order of sums it follows (not ``amax``'s autograd, which splits ties).
+:func:`roi_pool_grad_bf16` is the backward of the bf16 output option
+(``_fc_bwd_kernel``).
 """
 
 from __future__ import annotations
@@ -174,3 +176,18 @@ def roi_pool_grad(feat: torch.Tensor, rois: torch.Tensor, grad: torch.Tensor,
             # one add per (column, channel), at the column's first max row
             dfeat[bi].scatter_add_(0, h_star[i][None], g_rows[None])
     return dfeat
+
+
+def roi_pool_grad_bf16(feat: torch.Tensor, rois: torch.Tensor,
+                       grad: torch.Tensor, pooled_h: int = 7,
+                       pooled_w: int = 7, spatial_scale: float = 1.0 / 16.0,
+                       flavor: str = "gpu") -> torch.Tensor:
+    """The VJP of the pool with a bf16 output (the Pallas kernel
+    ``_fc_bwd_kernel``'s semantics, plain version of the CUDA kernel's bf16
+    instance): :func:`roi_pool_grad`'s placement and order of sums, ranking
+    ``bf16(feat)`` (rounding makes ties the f32 map did not have: they go to
+    the first column, then the first row), with the cotangent upcast to f32
+    and dfeat accumulated in f32, returned in feat's dtype."""
+    feat_cast = feat.to(torch.bfloat16).to(torch.float32)
+    return roi_pool_grad(feat_cast, rois, grad.to(torch.float32), pooled_h,
+                         pooled_w, spatial_scale, flavor).to(feat.dtype)

@@ -3,17 +3,26 @@
 Port of the TPU kernels ``wssdl_bus_tpu/ops/roi_pool_pallas.py``
 ``_fc_fwd_kernel`` (wrappers ``roi_pool_fc_image`` / ``roi_pool_fc``, the VGG
 path) and ``_fwd_kernel`` (``roi_pool_image`` / ``roi_pool_grouped``) in the
-forward, and ``_bwd_kernel`` (the f32 VJP ``_fc_vjp_bwd``) in the backward.
-One forward kernel serves both: its output [B, P, Ph, Pw, C] is contiguous
-NHWC, so the flat fc6 operand [B, P, Ph*Pw*C] is a view of the same bytes.
+forward, ``_bwd_kernel`` (the f32 VJP ``_fc_vjp_bwd``) and ``_fc_bwd_kernel``
+(the VJP of the bf16 output) in the backward.  One forward kernel serves
+both layouts: its output [B, P, Ph, Pw, C] is contiguous NHWC, so the flat
+fc6 operand [B, P, Ph*Pw*C] is a view of the same bytes.
+
+``out_dtype=torch.bfloat16`` is the JAX package's bf16 output option: the
+forward's values are ``bf16(max(feat))``, and the backward receives a bf16
+cotangent and routes by the bf16-rounded feat (``ops/roi_pool.py:
+roi_pool_grad_bf16``); feat stays f32 and gets an f32 dfeat.  Its kernels
+are the f32 kernels' bf16 instances, with their own launch counters
+(:func:`roi_pool_fc_bf16`, :func:`roi_pool_fc_backward_bf16`).
 
 :func:`roi_pool_fc` is differentiable with respect to ``feat``: for CUDA
 tensors a ``torch.autograd.Function`` whose forward launches the forward
-kernel and whose backward launches :func:`roi_pool_fc_backward`'s kernel,
-saving only (feat, rois), never the pooled output.  For CPU tensors it is
-:func:`roi_pool_fc_plain`, the same function with the plain forward
+kernel and whose backward launches the backward kernel of its output
+dtype, saving only (feat, rois), never the pooled output.  For CPU tensors
+it is :func:`roi_pool_fc_plain`, the same function with the plain forward
 (``ops/roi_pool.py:roi_pool``) and the plain backward
-(``ops/roi_pool.py:roi_pool_grad``).  Neither falls back to the other.
+(``ops/roi_pool.py:roi_pool_grad`` / ``roi_pool_grad_bf16``).  Neither
+falls back to the other.
 """
 
 from __future__ import annotations
@@ -24,32 +33,41 @@ import functools
 import torch
 
 from wssdl_bus_tpu_torch.ops.roi_pool import (roi_pool, roi_pool_grad,
+                                              roi_pool_grad_bf16,
                                               rois_with_batch_index)
 
 _FLAVORS = {"gpu": 0, "cpu": 1}
+OUT_DTYPES = (torch.float32, torch.bfloat16)
 
 
 @functools.lru_cache(maxsize=None)
 def _lib():
+    """(forward, backward) C entry points by output dtype."""
     from wssdl_bus_tpu_torch.ops import _build
 
     lib = _build.load("roi_pool")
-    fwd = lib.wssdl_roi_pool_fwd
-    fwd.restype = ctypes.c_int
-    fwd.argtypes = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 7 \
+    fwd_args = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 7 \
         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
-    bwd = lib.wssdl_roi_pool_bwd
-    bwd.restype = ctypes.c_int
-    bwd.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 \
+    bwd_args = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 \
         + [ctypes.c_float, ctypes.c_int] + [ctypes.c_void_p] * 3
-    return fwd, bwd
+    fns = {}
+    for dtype, suffix in ((torch.float32, ""), (torch.bfloat16, "_bf16")):
+        fwd = getattr(lib, f"wssdl_roi_pool_fwd{suffix}")
+        bwd = getattr(lib, f"wssdl_roi_pool_bwd{suffix}")
+        for fn, args in ((fwd, fwd_args), (bwd, bwd_args)):
+            fn.restype = ctypes.c_int
+            fn.argtypes = args
+        fns[dtype] = (fwd, bwd)
+    return fns
 
 
-def _plain_forward(feat, rois, pooled_h, pooled_w, spatial_scale, flavor):
+def _plain_forward(feat, rois, pooled_h, pooled_w, spatial_scale, flavor,
+                   out_dtype):
     b, p, _ = rois.shape
     out = roi_pool(feat, rois_with_batch_index(rois), pooled_h, pooled_w,
                    spatial_scale, flavor)
-    return out.reshape(b, p, pooled_h * pooled_w * feat.shape[-1])
+    return out.reshape(b, p, pooled_h * pooled_w * feat.shape[-1]) \
+        .to(out_dtype)
 
 
 class _RoiPoolFc(torch.autograd.Function):
@@ -58,35 +76,42 @@ class _RoiPoolFc(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, feat, rois, pooled_h, pooled_w, spatial_scale, flavor,
-                plain):
+                out_dtype, plain):
         ctx.save_for_backward(feat, rois)
         ctx.args = (pooled_h, pooled_w, spatial_scale, flavor)
+        ctx.bf16 = out_dtype == torch.bfloat16
         ctx.plain = plain
         fwd = _plain_forward if plain else _launch_forward
-        return fwd(feat, rois, *ctx.args)
+        return fwd(feat, rois, *ctx.args, out_dtype)
 
     @staticmethod
     def backward(ctx, grad):
         feat, rois = ctx.saved_tensors
         if ctx.plain:
-            dfeat = roi_pool_grad(feat, rois, grad, *ctx.args)
+            bwd = roi_pool_grad_bf16 if ctx.bf16 else roi_pool_grad
         else:
-            dfeat = roi_pool_fc_backward(feat, rois, grad.contiguous(),
-                                         *ctx.args)
-        return dfeat, None, None, None, None, None, None
+            bwd = roi_pool_fc_backward_bf16 if ctx.bf16 \
+                else roi_pool_fc_backward
+        dfeat = bwd(feat, rois, grad.contiguous(), *ctx.args)
+        return dfeat, None, None, None, None, None, None, None
 
 
 def roi_pool_fc_plain(feat: torch.Tensor, rois: torch.Tensor,
                       pooled_h: int = 7, pooled_w: int = 7,
                       spatial_scale: float = 1.0 / 16.0,
-                      flavor: str = "gpu") -> torch.Tensor:
+                      flavor: str = "gpu",
+                      out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """The plain version of :func:`roi_pool_fc`, on any device, with the
-    plain backward (``ops/roi_pool.py:roi_pool_grad``) under autograd."""
+    plain backward (``ops/roi_pool.py:roi_pool_grad``, or
+    ``roi_pool_grad_bf16`` for a bf16 output) under autograd."""
+    if out_dtype not in OUT_DTYPES:
+        raise TypeError(f"out_dtype must be float32 or bfloat16, got "
+                        f"{out_dtype}")
     return _RoiPoolFc.apply(feat, rois, pooled_h, pooled_w, spatial_scale,
-                            flavor, True)
+                            flavor, out_dtype, True)
 
 
-def _check_cuda(feat, rois, flavor):
+def _check_cuda(feat, rois, flavor, out_dtype=torch.float32):
     if feat.device.type != "cuda" or rois.device != feat.device:
         raise ValueError(f"roi_pool_fc: feat on {feat.device}, rois on "
                          f"{rois.device}; want both on one CUDA device or "
@@ -94,6 +119,9 @@ def _check_cuda(feat, rois, flavor):
     if feat.dtype != torch.float32 or rois.dtype != torch.float32:
         raise TypeError(f"roi_pool_fc takes f32 feat and rois, got "
                         f"{feat.dtype} / {rois.dtype}")
+    if out_dtype not in OUT_DTYPES:
+        raise TypeError(f"out_dtype must be float32 or bfloat16, got "
+                        f"{out_dtype}")
     if not (feat.is_contiguous() and rois.is_contiguous()):
         raise ValueError("roi_pool_fc takes contiguous feat and rois")
     b, h, w, c = feat.shape
@@ -106,27 +134,33 @@ def _check_cuda(feat, rois, flavor):
         raise ValueError(f"flavor must be 'gpu' or 'cpu', got {flavor!r}")
 
 
-def _launch_forward(feat, rois, pooled_h, pooled_w, spatial_scale, flavor):
+def _launch_forward(feat, rois, pooled_h, pooled_w, spatial_scale, flavor,
+                    out_dtype):
     b, h, w, c = feat.shape
     p = rois.shape[1]
-    out = torch.empty((b, p, pooled_h * pooled_w * c), dtype=torch.float32,
+    out = torch.empty((b, p, pooled_h * pooled_w * c), dtype=out_dtype,
                       device=feat.device)
     if b == 0 or p == 0:
         return out
     with torch.cuda.device(feat.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _lib()[0](feat.data_ptr(), rois.data_ptr(), b, h, w, c, p,
-                        pooled_h, pooled_w, float(spatial_scale),
-                        _FLAVORS[flavor], out.data_ptr(), stream)
+        err = _lib()[out_dtype][0](
+            feat.data_ptr(), rois.data_ptr(), b, h, w, c, p, pooled_h,
+            pooled_w, float(spatial_scale), _FLAVORS[flavor], out.data_ptr(),
+            stream)
     if err != 0:
         raise RuntimeError(f"roi_pool kernel launch failed: cudaError {err}")
-    roi_pool_fc.launches += 1
+    if out_dtype == torch.bfloat16:
+        roi_pool_fc_bf16.launches += 1
+    else:
+        roi_pool_fc.launches += 1
     return out
 
 
 def roi_pool_fc(feat: torch.Tensor, rois: torch.Tensor, pooled_h: int = 7,
                 pooled_w: int = 7, spatial_scale: float = 1.0 / 16.0,
-                flavor: str = "gpu") -> torch.Tensor:
+                flavor: str = "gpu",
+                out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Batched ROI max pooling written as the flat fc6 operand,
     differentiable with respect to ``feat``.
 
@@ -134,34 +168,42 @@ def roi_pool_fc(feat: torch.Tensor, rois: torch.Tensor, pooled_h: int = 7,
       feat: [B, H, W, C] f32 NHWC, contiguous, C % 4 == 0 on CUDA.
       rois: [B, P, 4] f32 (x1, y1, x2, y2) in input-image coordinates; ROI
         p of image b pools against feat[b].
-    Returns [B, P, Ph*Pw*C] f32 in NHWC (ph, pw, c) flatten order.
+      out_dtype: torch.float32, or torch.bfloat16 for the bf16 option.
+    Returns [B, P, Ph*Pw*C] in ``out_dtype``, NHWC (ph, pw, c) flatten
+    order.  The f32 launches count on ``roi_pool_fc.launches``, the bf16
+    ones on ``roi_pool_fc_bf16.launches``.
     """
     if feat.device.type == "cpu" and rois.device.type == "cpu":
         return roi_pool_fc_plain(feat, rois, pooled_h, pooled_w,
-                                 spatial_scale, flavor)
-    _check_cuda(feat, rois, flavor)
+                                 spatial_scale, flavor, out_dtype)
+    _check_cuda(feat, rois, flavor, out_dtype)
     return _RoiPoolFc.apply(feat, rois, pooled_h, pooled_w, spatial_scale,
-                            flavor, False)
+                            flavor, out_dtype, False)
 
 
 roi_pool_fc.launches = 0
 
 
-def roi_pool_fc_backward(feat: torch.Tensor, rois: torch.Tensor,
-                         grad: torch.Tensor, pooled_h: int = 7,
-                         pooled_w: int = 7, spatial_scale: float = 1.0 / 16.0,
-                         flavor: str = "gpu") -> torch.Tensor:
-    """dfeat [B, H, W, C] of :func:`roi_pool_fc` for the cotangent ``grad``
-    [B, P, Ph*Pw*C] (or its [B, P, Ph, Pw, C] view): the CUDA kernel for
-    CUDA tensors, ``ops/roi_pool.py:roi_pool_grad`` for CPU tensors."""
-    if all(t.device.type == "cpu" for t in (feat, rois, grad)):
-        return roi_pool_grad(feat, rois, grad, pooled_h, pooled_w,
-                             spatial_scale, flavor)
+def roi_pool_fc_bf16(feat: torch.Tensor, rois: torch.Tensor,
+                     pooled_h: int = 7, pooled_w: int = 7,
+                     spatial_scale: float = 1.0 / 16.0,
+                     flavor: str = "gpu") -> torch.Tensor:
+    """:func:`roi_pool_fc` with ``out_dtype=torch.bfloat16``."""
+    return roi_pool_fc(feat, rois, pooled_h, pooled_w, spatial_scale,
+                       flavor, torch.bfloat16)
+
+
+roi_pool_fc_bf16.launches = 0
+
+
+def _launch_backward(feat, rois, grad, pooled_h, pooled_w, spatial_scale,
+                     flavor):
+    """dfeat f32 from the backward kernel of ``grad``'s dtype."""
     _check_cuda(feat, rois, flavor)
     b, h, w, c = feat.shape
     p = rois.shape[1]
-    if grad.device != feat.device or grad.dtype != torch.float32:
-        raise TypeError(f"grad must be f32 on {feat.device}, got "
+    if grad.device != feat.device or grad.dtype not in OUT_DTYPES:
+        raise TypeError(f"grad must be f32 or bf16 on {feat.device}, got "
                         f"{grad.dtype} on {grad.device}")
     if grad.numel() != b * p * pooled_h * pooled_w * c \
             or grad.shape[:2] != (b, p):
@@ -179,18 +221,61 @@ def roi_pool_fc_backward(feat: torch.Tensor, rois: torch.Tensor,
         return dfeat
     with torch.cuda.device(feat.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _lib()[1](feat.data_ptr(), rois.data_ptr(), grad.data_ptr(), b,
-                        h, w, c, p, pooled_h, pooled_w, float(spatial_scale),
-                        _FLAVORS[flavor], active.data_ptr(), dfeat.data_ptr(),
-                        stream)
+        err = _lib()[grad.dtype][1](
+            feat.data_ptr(), rois.data_ptr(), grad.data_ptr(), b, h, w, c, p,
+            pooled_h, pooled_w, float(spatial_scale), _FLAVORS[flavor],
+            active.data_ptr(), dfeat.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"roi_pool backward kernel launch failed: "
                            f"cudaError {err}")
+    return dfeat
+
+
+def roi_pool_fc_backward(feat: torch.Tensor, rois: torch.Tensor,
+                         grad: torch.Tensor, pooled_h: int = 7,
+                         pooled_w: int = 7, spatial_scale: float = 1.0 / 16.0,
+                         flavor: str = "gpu") -> torch.Tensor:
+    """dfeat [B, H, W, C] of :func:`roi_pool_fc` for the f32 cotangent
+    ``grad`` [B, P, Ph*Pw*C] (or its [B, P, Ph, Pw, C] view): the CUDA
+    kernel for CUDA tensors, ``ops/roi_pool.py:roi_pool_grad`` for CPU
+    tensors."""
+    if all(t.device.type == "cpu" for t in (feat, rois, grad)):
+        return roi_pool_grad(feat, rois, grad, pooled_h, pooled_w,
+                             spatial_scale, flavor)
+    if grad.dtype != torch.float32:
+        raise TypeError(f"roi_pool_fc_backward takes an f32 grad, got "
+                        f"{grad.dtype}")
+    dfeat = _launch_backward(feat, rois, grad, pooled_h, pooled_w,
+                             spatial_scale, flavor)
     roi_pool_fc_backward.launches += 1
     return dfeat
 
 
 roi_pool_fc_backward.launches = 0
+
+
+def roi_pool_fc_backward_bf16(feat: torch.Tensor, rois: torch.Tensor,
+                              grad: torch.Tensor, pooled_h: int = 7,
+                              pooled_w: int = 7,
+                              spatial_scale: float = 1.0 / 16.0,
+                              flavor: str = "gpu") -> torch.Tensor:
+    """dfeat [B, H, W, C] (feat's dtype) of :func:`roi_pool_fc` with a bf16
+    output, for the bf16 cotangent ``grad``: routing by the bf16-rounded
+    feat.  The CUDA kernel for CUDA tensors (f32 feat), ``ops/roi_pool.py:
+    roi_pool_grad_bf16`` for CPU tensors."""
+    if all(t.device.type == "cpu" for t in (feat, rois, grad)):
+        return roi_pool_grad_bf16(feat, rois, grad, pooled_h, pooled_w,
+                                  spatial_scale, flavor)
+    if grad.dtype != torch.bfloat16:
+        raise TypeError(f"roi_pool_fc_backward_bf16 takes a bf16 grad, got "
+                        f"{grad.dtype}")
+    dfeat = _launch_backward(feat, rois, grad, pooled_h, pooled_w,
+                             spatial_scale, flavor)
+    roi_pool_fc_backward_bf16.launches += 1
+    return dfeat
+
+
+roi_pool_fc_backward_bf16.launches = 0
 
 
 def roi_pool_grouped(feat: torch.Tensor, rois: torch.Tensor,

@@ -31,7 +31,8 @@ import torch
 
 from wssdl_bus_tpu_torch.config import Config
 from wssdl_bus_tpu_torch.mil import get_bag_logits
-from wssdl_bus_tpu_torch.models.detector import FasterRCNN, rpn_softmax
+from wssdl_bus_tpu_torch.models.detector import (FasterRCNN, rpn_softmax,
+                                                 stem_is_frozen)
 from wssdl_bus_tpu_torch.ops.anchor_target import anchor_target_layer_joint
 from wssdl_bus_tpu_torch.ops.anchors import shifted_anchors
 from wssdl_bus_tpu_torch.ops.nms import nms_mask
@@ -141,7 +142,9 @@ class Engine:
     ``device``: CUDA unless named (raises without a card).  ``plain_ops``
     swaps the kernels for their plain PyTorch versions
     (``ops/nms.py:nms_mask``, ``ops/roi_pool_cuda.py:roi_pool_fc_plain``
-    with its plain backward) on whatever the device is: the yardstick
+    with its plain backward, and for the opt-in stem paths
+    ``ops/conv1.py:vgg_stem_plain`` / ``ops/conv2_pool.py:
+    vgg_conv2_pool_plain``) on whatever the device is: the yardstick
     ``chip_smoke.py`` holds the served and trained paths against.
 
     Training: ``num_supervised`` / ``num_ws`` default to the config's
@@ -166,6 +169,7 @@ class Engine:
         self.anchors = torch.as_tensor(
             shifted_anchors(fh, fw, cfg.FEAT_STRIDE, cfg.ANCHOR_RATIOS,
                             cfg.ANCHOR_SCALES), device=self.device)
+        self.plain_ops = plain_ops
         self._nms = nms_mask if plain_ops else nms_keep
         self._pool = roi_pool_fc_plain if plain_ops else roi_pool_fc
 
@@ -203,6 +207,13 @@ class Engine:
             self._opt = make_optimizer(self.opt_name, self.cfg, self.model)
         return self._opt
 
+    def _train_trunk(self, data):
+        """The trunk in training mode: the stem kernels may run only while
+        conv1/conv2 are frozen (``models/detector.py:stem_is_frozen``)."""
+        return self.model.apply_trunk(
+            data, stem_frozen=stem_is_frozen(self.model),
+            plain_ops=self.plain_ops)
+
     def _pool_for_head(self, feat, boxes):
         """ROI-pool ``boxes`` [B, P, 4] against ``feat`` [B, h, w, C] into the
         flat fc6 operand [B*P, 7*7*C]."""
@@ -230,7 +241,8 @@ class Engine:
         data = torch.as_tensor(data, dtype=torch.float32, device=self.device)
         im_info = torch.as_tensor(im_info, dtype=torch.float32,
                                   device=self.device)
-        feat, rpn_score, rpn_bbox = self.model.apply_trunk(data)
+        feat, rpn_score, rpn_bbox = self.model.apply_trunk(
+            data, plain_ops=self.plain_ops)
         props = self._proposals(rpn_score, rpn_bbox, im_info, self.cfg.TEST)
         pooled = self._pool_for_head(feat, props.boxes)
         cls_score, bbox_pred = self.model.apply_head(pooled)
@@ -265,7 +277,7 @@ class Engine:
         gen = self.generator
         b = _batch_tensors(batch, self.device)
         self.model.train()
-        feat, rpn_score, rpn_bbox = self.model.apply_trunk(b["data"])
+        feat, rpn_score, rpn_bbox = self._train_trunk(b["data"])
         at = anchor_target_layer_joint(
             b["gt_boxes"], b["num_gt_boxes"], b["im_info"], self.anchors,
             n_s, uniforms=draws.anchor_u, generator=gen, **self._at_kwargs)
@@ -330,7 +342,7 @@ class Engine:
         draws = draws or StepDraws()
         b = _batch_tensors(batch, self.device)
         self.model.train()
-        feat, rpn_score, rpn_bbox = self.model.apply_trunk(b["data"])
+        feat, rpn_score, rpn_bbox = self._train_trunk(b["data"])
         props = self._proposals(rpn_score, rpn_bbox, b["im_info"], cfg.TRAIN)
         cls_ws, _ = self.model.apply_head(
             self._pool_for_head(feat, props.boxes), draws.keep_ws,
