@@ -26,8 +26,10 @@ SOURCES = ("nms", "roi_pool", "conv1", "conv2_pool")
 
 # -fmad=false: no contracted multiply-adds anywhere (the NMS keep set and the
 # ROI quantisation must equal the plain PyTorch versions bit for bit); the
-# kernels use no fast-math approximations either.  The stem kernels' explicit
-# fmaf calls are not contractions and stay fused.
+# kernels use no fast-math approximations either.  The fused stem's explicit
+# fmaf calls (conv1_1 in the plain version's order) are not contractions and
+# stay fused; the stem kernels' wgmma (inline PTX, no CUTLASS) is untouched
+# by the flag.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")

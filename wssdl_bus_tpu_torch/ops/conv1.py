@@ -7,17 +7,21 @@ Counterpart of ``wssdl_bus_tpu/ops/conv1_pallas.py:94-138``.  Tensors keep
 the JAX package's layouts: images and activations NHWC, conv kernels HWIO
 ([3, 3, C_in, C_out]), biases [C_out].
 
-Numerics of the kernel, which :func:`vgg_stem_plain` repeats operation for
-operation: x and both kernels are rounded to bf16; conv1_1's output
-``relu(sum + b1)`` is rounded to bf16 too, and is 0 outside the image (the
-SAME zeros conv1_2 sees); every tap product is a product of two bf16
-values, exact in f32.  Each output sums its taps in one fixed order,
-``(dy, dx, c)`` ascending from 0.0, then adds the bias, then takes the
-ReLU.  With exact products, ``acc + a*b`` equals ``fma(a, b, acc)``, so the
-kernel and the plain version agree bit for bit whether or not a compiler
-contracts.  The Pallas kernel sums the same products in the MXU's order, so
-against it the port agrees to f32 reassociation (and exactly where every
-partial sum is exact).
+Numerics of the kernel and of :func:`vgg_stem_plain`: x and both kernels
+are rounded to bf16; conv1_1's output ``relu(sum + b1)`` is rounded to
+bf16 too, and is 0 outside the image (the SAME zeros conv1_2 sees); every
+tap product is a product of two bf16 values, exact in f32.  The plain
+version sums each output's taps in one fixed order, ``(dy, dx, c)``
+ascending from 0.0, then adds the bias, then takes the ReLU.  The kernel
+computes conv1_1 in that same order with ``fmaf`` (with exact products
+``acc + a*b`` equals ``fma(a, b, acc)``), so its bf16 conv1_1 tile is the
+plain version's bit for bit; it sums conv1_2's products on the tensor
+cores (wgmma), in the hardware's order.  Kernel and plain version
+therefore agree to f32 reassociation, within 1e-5 of the output's largest
+magnitude, and bit for bit where every partial sum is exact (a dyadic
+grid: integer x, kernels and biases multiples of 1/8).  The Pallas kernel
+sums the same products in the MXU's order: against it the port agrees to
+f32 reassociation too (and exactly on the dyadic grid).
 
 The gate is the JAX package's: opt-in with ``WSSDL_FUSED_STEM=1``, read at
 call time, and the JAX package's chunking predicate :func:`stem_shape_ok`
@@ -110,7 +114,8 @@ def max_pool_2x2(y: torch.Tensor) -> torch.Tensor:
 def vgg_stem_plain(x, w1, b1, w2, b2) -> torch.Tensor:
     """The plain version of the fused-stem kernel, on any device: x
     [B, H, W, 3] -> [B, H/2, W/2, 64] f32, with the kernel's roundings and
-    order of sums (module docstring).  Slow: 27 + 576 accumulate passes over
+    the fixed order of sums (module docstring), the f32 reference the
+    kernel is held to.  Slow: 27 + 576 accumulate passes over
     the full-resolution activation; never a yardstick of speed."""
     a1 = bf16_round(conv3x3_taps(bf16_round(x.float()), bf16_round(w1.float()),
                                  b1.float()))

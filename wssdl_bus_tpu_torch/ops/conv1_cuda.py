@@ -4,8 +4,12 @@ Port of the TPU kernel ``wssdl_bus_tpu/ops/conv1_pallas.py:_stem_kernel``
 (wrapper ``vgg_stem_fused``).  :func:`vgg_stem_fused` launches the kernel
 for CUDA tensors and takes the plain version (``ops/conv1.py:
 vgg_stem_plain``) for CPU tensors; it never falls back from one to the
-other.  Neither has a backward: callers run it under ``torch.no_grad()``
-with a frozen stem (``models/detector.py:FasterRCNN.apply_trunk``).
+other.  The kernel runs conv1_2 on the tensor cores (wgmma), so it agrees
+with the plain version to f32 reassociation, not bit for bit
+(``ops/conv1.py``); it reads conv1_2's kernel packed to bf16 by
+``ops/conv2_pool.py:pack_conv2_weights_bf16``.  Neither has a backward:
+callers run it under ``torch.no_grad()`` with a frozen stem
+(``models/detector.py:FasterRCNN.apply_trunk``).
 """
 
 from __future__ import annotations
@@ -16,6 +20,7 @@ import functools
 import torch
 
 from wssdl_bus_tpu_torch.ops.conv1 import BH, stem_shape_ok, vgg_stem_plain
+from wssdl_bus_tpu_torch.ops.conv2_pool import pack_conv2_weights_bf16
 
 
 @functools.lru_cache(maxsize=None)
@@ -65,9 +70,10 @@ def vgg_stem_fused(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     out = torch.empty((b, h // 2, w // 2, 64), dtype=torch.float32,
                       device=x.device)
     with torch.cuda.device(x.device):
+        wpk = pack_conv2_weights_bf16(w2)
         stream = torch.cuda.current_stream().cuda_stream
         err = _lib()(x.data_ptr(), w1.data_ptr(), b1.data_ptr(),
-                     w2.data_ptr(), b2.data_ptr(), b, h, w, out.data_ptr(),
+                     wpk.data_ptr(), b2.data_ptr(), b, h, w, out.data_ptr(),
                      stream)
     if err != 0:
         raise RuntimeError(f"stem kernel launch failed: cudaError {err}")

@@ -9,12 +9,17 @@ as in ``ops/conv1.py``: NHWC activations, HWIO kernels.
 The tail's input is ``a1 = bf16(relu(conv1_1(x) + b1))``; conv1_1 stays a
 library conv (cuDNN: TF32 by default, true f32 with TF32 off), as the JAX
 package keeps it in XLA.  The kernel then computes ``relu(sum a1 *
-bf16(w2) + b2)`` with SAME zeros and the 2x2/2 max-pool, f32 out, with the
-fused stem's order of sums and bit-for-bit contract (``ops/conv1.py``).
+bf16(w2) + b2)`` with SAME zeros and the 2x2/2 max-pool, f32 out, summing
+the exact bf16 products on the tensor cores in wgmma's order; the plain
+version sums them in the fixed order of ``ops/conv1.py``, so the two agree
+to f32 reassociation (1e-5 of the output's largest magnitude) and bit for
+bit on a dyadic grid, as the fused stem does.
 
-The JAX package's ``pack_conv2_weights`` (the pair-packed 128-lane weight
-blocks with structural zeros) is the TPU kernel's layout for its matrix
-unit; the CUDA kernel reads the HWIO kernel as it is and needs no packing.
+The kernel reads conv1_2's kernel packed by :func:`pack_conv2_weights_bf16`
+([tap, c_out, c_in] bf16: each tap's rows are the GEMM's K-major B
+operand).  The JAX package's ``pack_conv2_weights`` (the pair-packed
+128-lane weight blocks with structural zeros) is the TPU kernel's layout
+for its matrix unit and is not carried over.
 """
 
 from __future__ import annotations
@@ -30,7 +35,8 @@ from wssdl_bus_tpu_torch.ops.conv1 import (_nchw_conv, bf16_round,
 R = 8            # the JAX kernel's conv1_2 output rows per grid step
 
 __all__ = ["R", "conv2_pool_shape_ok", "conv2_pool_ok", "vgg_conv1_1",
-           "vgg_conv2_pool_reference", "vgg_conv2_pool_plain"]
+           "vgg_conv2_pool_reference", "vgg_conv2_pool_plain",
+           "pack_conv2_weights_bf16"]
 
 
 def conv2_pool_shape_ok(shape) -> bool:
@@ -70,10 +76,20 @@ def vgg_conv2_pool_reference(a1, w2, b2) -> torch.Tensor:
     return F.max_pool2d(y, 2, 2).permute(0, 2, 3, 1).contiguous()
 
 
+def pack_conv2_weights_bf16(w2: torch.Tensor) -> torch.Tensor:
+    """conv1_2's HWIO kernel [3, 3, 64, 64] -> [9, 64, 64] bf16, contiguous:
+    tap (dy * 3 + dx), output channel, input channel; the B operand of both
+    stem kernels (``csrc/vgg_stem.cuh``), each tap a K-major 64 x 64 tile."""
+    kh, kw, ci, co = w2.shape
+    return w2.reshape(kh * kw, ci, co).transpose(1, 2) \
+        .to(torch.bfloat16).contiguous()
+
+
 def vgg_conv2_pool_plain(a1, w2, b2) -> torch.Tensor:
     """The plain version of the tail kernel, on any device: a1 [B, H, W, 64]
     (bf16, or f32 rounded to bf16 first) -> [B, H/2, W/2, 64] f32, with the
-    kernel's roundings and order of sums."""
+    kernel's roundings, summing in the fixed (dy, dx, c) order (the
+    kernel's tensor cores reassociate: module docstring)."""
     y = conv3x3_taps(bf16_round(a1.float()), bf16_round(w2.float()),
                      b2.float())
     return max_pool_2x2(y)

@@ -5,7 +5,10 @@ Port of the TPU kernel ``wssdl_bus_tpu/ops/conv2_pool_pallas.py:
 _tail_kernel`` (wrapper ``vgg_conv2_pool``).  :func:`vgg_conv2_pool`
 launches the kernel for CUDA tensors and takes the plain version
 (``ops/conv2_pool.py:vgg_conv2_pool_plain``) for CPU tensors; it never
-falls back from one to the other.  No backward, as for the fused stem.
+falls back from one to the other.  The kernel fetches a1's halo tiles
+with TMA (a tensor map built per call) and sums on the tensor cores, so it
+agrees with the plain version to f32 reassociation (``ops/conv2_pool.py``).
+No backward, as for the fused stem.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ import torch
 
 from wssdl_bus_tpu_torch.ops.conv1_cuda import check_weights
 from wssdl_bus_tpu_torch.ops.conv2_pool import (R, conv2_pool_shape_ok,
+                                                pack_conv2_weights_bf16,
                                                 vgg_conv2_pool_plain)
 
 
@@ -56,8 +60,9 @@ def vgg_conv2_pool(a1: torch.Tensor, w2: torch.Tensor,
     out = torch.empty((b, h // 2, w // 2, 64), dtype=torch.float32,
                       device=a1.device)
     with torch.cuda.device(a1.device):
+        wpk = pack_conv2_weights_bf16(w2)
         stream = torch.cuda.current_stream().cuda_stream
-        err = _lib()(a1.data_ptr(), w2.data_ptr(), b2.data_ptr(), b, h, w,
+        err = _lib()(a1.data_ptr(), wpk.data_ptr(), b2.data_ptr(), b, h, w,
                      out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"stem tail kernel launch failed: cudaError {err}")
