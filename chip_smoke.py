@@ -192,16 +192,101 @@ def roi_pool_bound(feat, rois, scale, out_bytes: int = 4):
                                        else "operations")
 
 
+def phase_split(fn, phases, reps: int = 5) -> dict:
+    """Device ms per call of ``fn`` spent in each kernel whose name holds
+    ``<phase>_kernel``, from torch.profiler over ``reps`` calls; {} if it
+    records no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    split = {}
+    for e in prof.key_averages():
+        for phase in phases:
+            if f"{phase}_kernel" in e.key:
+                split[phase] = split.get(phase, 0.0) \
+                    + getattr(e, "device_time_total", 0) / reps / 1e3
+    return split
+
+
+def split_text(split: dict) -> str:
+    return " + ".join(f"{k} {v:.4f}" for k, v in split.items()) \
+        or "not recorded"
+
+
+def check_nms(boxes_t, valid, thresh, tag: str) -> dict:
+    """The NMS kernel against its plain version on [B, 4, N] candidates:
+    identical keep masks, image 0 equal to the host's numpy greedy NMS;
+    CUDA-event times of the kernel and the plain version, the bound, and
+    the mask / walk split of the kernel's time."""
+    import torch
+
+    from wssdl_bus_tpu_torch.evaluate.detect import nms_numpy
+    from wssdl_bus_tpu_torch.ops.nms import nms_mask
+    from wssdl_bus_tpu_torch.ops.nms_cuda import nms_keep
+
+    keep_k = nms_keep(boxes_t, valid, thresh)
+    keep_p = nms_mask(boxes_t, valid, thresh)
+    torch.cuda.synchronize()
+    nms_err = int((keep_k != keep_p).sum())
+    _check(nms_err == 0, f"NMS ({tag}) keep masks differ in {nms_err} places")
+    # a third, independent implementation: the host's numpy greedy NMS on
+    # image 0 (strictly decreasing scores keep the sorted order)
+    v0 = valid[0].cpu().numpy()
+    b0 = boxes_t[0].cpu().numpy().T[v0]
+    dets = np.hstack([b0, -np.arange(len(b0), dtype=np.float32)[:, None]])
+    want0 = np.zeros(len(b0), bool)
+    want0[nms_numpy(dets, thresh)] = True
+    _check(np.array_equal(keep_k[0].cpu().numpy()[v0], want0),
+           f"NMS ({tag}) kernel disagrees with the numpy greedy NMS on "
+           "image 0")
+    ms = cuda_ms(lambda: nms_keep(boxes_t, valid, thresh), 20)
+    plain_ms = cuda_ms(lambda: nms_mask(boxes_t, valid, thresh), 3, warmup=1)
+    bound_ms, bound_by, pairs = nms_bound(keep_k, valid)
+    split = phase_split(lambda: nms_keep(boxes_t, valid, thresh),
+                        ("nms_compact", "nms_mask", "nms_walk"))
+    print(f"[nms] {tag} boxes_t {tuple(boxes_t.shape)}, {int(valid.sum())} "
+          f"valid: nms_keep == nms_mask ({int(keep_k.sum())} kept), image 0 "
+          f"== numpy greedy NMS; kernel {ms:.4f} ms ({split_text(split)} ms "
+          f"by the profiler), plain "
+          f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms by {bound_by} "
+          f"({pairs} IoU pairs)", flush=True)
+    return {"max_abs_err": nms_err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "split_ms": split,
+            "shape": list(boxes_t.shape)}
+
+
+def training_candidates(eng, batch) -> tuple:
+    """The NMS inputs of a training step on ``batch``: the trunk's own RPN
+    outputs through the TRAIN budgets' candidate selection (12000 per
+    image) -> (boxes_t [B, 4, 12000], valid [B, 12000], thresh)."""
+    import torch
+
+    from wssdl_bus_tpu_torch.models.detector import rpn_softmax
+    from wssdl_bus_tpu_torch.ops.proposal import top_candidates
+
+    t = eng.cfg.TRAIN
+    with torch.no_grad():
+        data = torch.as_tensor(batch["data"], device=eng.device)
+        im_info = torch.as_tensor(batch["im_info"], dtype=torch.float32,
+                                  device=eng.device)
+        _, score, bbox = eng.model.apply_trunk(data)
+        cand = top_candidates(rpn_softmax(score, eng.num_anchors), bbox,
+                              im_info, eng.anchors, eng.num_anchors,
+                              t.RPN_PRE_NMS_TOP_N, float(t.RPN_MIN_SIZE))
+    return cand.boxes_t, cand.valid, t.RPN_NMS_THRESH
+
+
 def check_kernels(eng, images, net):
     """Phase 3: both kernels against their plain versions at the served
     path's shapes, fed by the trunk's own outputs for ``images``."""
     import torch
 
-    from wssdl_bus_tpu_torch.evaluate.detect import (nms_numpy,
-                                                     pack_image_batch)
+    from wssdl_bus_tpu_torch.evaluate.detect import pack_image_batch
     from wssdl_bus_tpu_torch.models.detector import rpn_softmax
-    from wssdl_bus_tpu_torch.ops.nms import nms_mask
-    from wssdl_bus_tpu_torch.ops.nms_cuda import nms_keep
     from wssdl_bus_tpu_torch.ops.proposal import (proposal_layer,
                                                   top_candidates)
     from wssdl_bus_tpu_torch.ops.roi_pool_cuda import (roi_pool_fc,
@@ -224,27 +309,7 @@ def check_kernels(eng, images, net):
               f"{int(valid.sum())} valid; ROI pool feat {tuple(feat.shape)}",
               flush=True)
 
-        keep_k = nms_keep(boxes_t, valid, thresh)
-        keep_p = nms_mask(boxes_t, valid, thresh)
-        torch.cuda.synchronize()
-        nms_err = int((keep_k != keep_p).sum())
-        _check(nms_err == 0, f"NMS keep masks differ in {nms_err} places")
-        # a third, independent implementation: the host's numpy greedy NMS
-        # on image 0 (strictly decreasing scores keep the sorted order)
-        v0 = valid[0].cpu().numpy()
-        b0 = boxes_t[0].cpu().numpy().T[v0]
-        dets = np.hstack([b0, -np.arange(len(b0), dtype=np.float32)[:, None]])
-        want0 = np.zeros(len(b0), bool)
-        want0[nms_numpy(dets, thresh)] = True
-        _check(np.array_equal(keep_k[0].cpu().numpy()[v0], want0),
-               "NMS kernel disagrees with the numpy greedy NMS on image 0")
-        print(f"[kernels] nms_keep == nms_mask on {tuple(keep_k.shape)}: "
-              f"{int(keep_k.sum())} kept; image 0 == numpy greedy NMS",
-              flush=True)
-        nms_ms = cuda_ms(lambda: nms_keep(boxes_t, valid, thresh), 20)
-        nms_plain_ms = cuda_ms(lambda: nms_mask(boxes_t, valid, thresh), 3,
-                               warmup=1)
-        nms_bound_ms, nms_bound_by, pairs = nms_bound(keep_k, valid)
+        nms_stats = check_nms(boxes_t, valid, thresh, "serve")
 
         props = proposal_layer(prob, bbox, im_info, eng.anchors,
                                eng.num_anchors, cfg.TEST.RPN_PRE_NMS_TOP_N,
@@ -270,16 +335,12 @@ def check_kernels(eng, images, net):
         roi_plain_ms = cuda_ms(
             lambda: roi_pool_fc_plain(feat, rois, 7, 7, scale), 3, warmup=1)
         roi_bound_ms, roi_bound_by = roi_pool_bound(feat, rois, scale)
-    print(f"[kernels] nms_keep {nms_ms:.4f} ms (plain {nms_plain_ms:.3f} ms,"
-          f" bound {nms_bound_ms:.4f} ms by {nms_bound_by}, {pairs} IoU "
-          f"pairs); roi_pool_fc {roi_ms:.4f} ms (plain {roi_plain_ms:.3f} ms,"
-          f" bound {roi_bound_ms:.4f} ms by {roi_bound_by}); library: none "
-          "(PyTorch has no NMS or ROI-pool op; torchvision is not used)",
+    print(f"[kernels] roi_pool_fc {roi_ms:.4f} ms (plain {roi_plain_ms:.3f}"
+          f" ms, bound {roi_bound_ms:.4f} ms by {roi_bound_by}); library: "
+          "none (PyTorch has no NMS or ROI-pool op; torchvision is not used)",
           flush=True)
     return {
-        "nms_keep": {"max_abs_err": nms_err, "ms": nms_ms,
-                     "plain_ms": nms_plain_ms, "bound_ms": nms_bound_ms,
-                     "bound_by": nms_bound_by},
+        "nms_keep": dict(nms_stats, per_shape={"serve": nms_stats}),
         "roi_pool_fc": {"max_abs_err": roi_err, "ms": roi_ms,
                         "plain_ms": roi_plain_ms, "bound_ms": roi_bound_ms,
                         "bound_by": roi_bound_by},
@@ -463,6 +524,11 @@ def training_groups(eng, batch):
             "weak": (feat[n_s:], det["props"].boxes[n_s:].contiguous())}
 
 
+# the backward's launches (csrc/roi_pool.cu), as phase_split names them
+BACKWARD_PHASES = ("roi_rows_active", "roi_rows_compact", "roi_argmax",
+                   "roi_gather")
+
+
 def check_backward_kernel(eng, groups, dtype):
     """Phase 5a (f32 cotangent, kernel #4) and phase 8 (bf16 cotangent, the
     bf16 output's backward): the backward kernel against its plain version
@@ -538,20 +604,27 @@ def check_backward_kernel(eng, groups, dtype):
         t = cuda_ms(lambda: kernel(f, rois, g, 7, 7, scale), 20)
         tp = cuda_ms(lambda: plain(f, rois, g, 7, 7, scale), 2, warmup=1)
         bnd, by = roi_pool_bwd_bound(f, rois, g, scale)
+        split = phase_split(lambda: kernel(f, rois, g, 7, 7, scale),
+                            BACKWARD_PHASES)
         per[k] = {"ms": t, "plain_ms": tp, "bound_ms": bnd, "bound_by": by,
-                  "g_shape": list(g.shape)}
+                  "g_shape": list(g.shape), "split_ms": split}
         ms, plain_ms, bound_ms = ms + t, plain_ms + tp, bound_ms + bnd
-        print(f"{tag} {k:4s} launch: kernel {t:.4f} ms, plain {tp:.3f} "
-              f"ms, bound {bnd:.4f} ms by {by}", flush=True)
-    tdense = cuda_ms(lambda: kernel(*groups["weak"], cases["dense"]["weak"],
-                                    7, 7, scale), 5)
+        print(f"{tag} {k:4s} launch: kernel {t:.4f} ms ({split_text(split)}"
+              f" ms by the profiler), plain {tp:.3f} ms, bound {bnd:.4f} ms "
+              f"by {by}", flush=True)
+    def dense():
+        return kernel(*groups["weak"], cases["dense"]["weak"], 7, 7, scale)
+
+    tdense = cuda_ms(dense, 5)
+    split = phase_split(dense, BACKWARD_PHASES, reps=2)
     print(f"{tag} weak launch with a dense cotangent (all 4000 rows): "
-          f"kernel {tdense:.4f} ms", flush=True)
+          f"kernel {tdense:.4f} ms ({split_text(split)} ms by the "
+          "profiler)", flush=True)
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": "bytes" if all(
                 v["bound_by"] == "bytes" for v in per.values())
             else "operations", "per_launch": per,
-            "dense_weak_ms": tdense}
+            "dense_weak_ms": tdense, "dense_weak_split_ms": split}
 
 
 def check_bf16_forward(eng, groups):
@@ -1196,7 +1269,11 @@ def main() -> int:
           f"{t.RPN_NMS_THRESH}, {t.BATCH_SIZE} ROIs per supervised image, "
           f"adam lr {t.LEARNING_RATE}, MIL {teng.selector_pair}", flush=True)
 
-    # phase 5a: the backward kernel at the step's shapes
+    # phase 5a: NMS at the combined and the MIL step's candidates, and the
+    # backward kernel at the step's shapes
+    for tag, batch in (("train", joint[0]), ("mil", weak)):
+        stats["nms_keep"]["per_shape"][tag] = check_nms(
+            *training_candidates(teng, batch), tag)
     groups = training_groups(teng, joint[0])
     stats["roi_pool_fc_backward"] = check_backward_kernel(teng, groups,
                                                           torch.float32)

@@ -49,6 +49,11 @@ def _sorted_boxes(rng, b, n, scale=800.0):
     (2, 1111, 0.3),     # N not a multiple of 64
     (1, 1, 0.0),
     (2, 130, 1.0),      # every box invalid
+    (2, 63, 0.1),       # one tile, one short of full
+    (2, 64, 0.1),       # one full tile: no row words
+    (2, 65, 0.1),       # a second tile of one box
+    (1, 4097, 0.1),
+    (1, 20000, 0.05),   # tile rows wider than one stage: several chunks
 ])
 def test_nms_kernel_matches_plain(cuda, b, n, invalid):
     rng = np.random.RandomState(n)
@@ -69,6 +74,62 @@ def test_nms_kernel_threshold_is_inclusive(cuda):
     valid = torch.ones(1, 3, dtype=torch.bool)
     got = nms_keep(boxes.to(cuda), valid.to(cuda), 0.7).cpu()
     assert got.tolist() == [[True, False, True]]   # IoU 0.7 and 0.6
+
+
+def _chain(kind, n):
+    """Boxes in which each suppresses only the next at 0.7: nested boxes
+    sharing a corner (side + 1 shrinking by 0.86, IoU 0.74 with the next,
+    0.55 with the one after), or 11 x 11 boxes sliding 1.5 px (IoU 0.76 and
+    0.57).  Kept and removed alternate down the whole chain."""
+    z = np.zeros(n)
+    if kind == "nested":
+        side = 1e5 * 0.86 ** np.arange(n) - 1
+        boxes = np.stack([z, z, side, side])
+    else:
+        x = np.arange(n) * 1.5
+        boxes = np.stack([x, z, x + 10, z + 10])
+    return torch.from_numpy(boxes.astype(np.float32)[None].copy())
+
+
+@pytest.mark.parametrize("kind,n", [("nested", 64), ("sliding", 200),
+                                    ("sliding", 5000)])
+def test_nms_kernel_deep_suppression_chains(cuda, kind, n):
+    """A chain as deep as the tile (nested) and across 4 and 79 tiles
+    (sliding): the settle's fixpoint and the walk's order."""
+    boxes = _chain(kind, n).to(cuda)
+    valid = torch.ones(1, n, dtype=torch.bool, device=cuda)
+    got = nms_keep(boxes, valid, 0.7)
+    assert torch.equal(got, nms_mask(boxes, valid, 0.7))
+    assert got[0].cpu().tolist() == [k % 2 == 0 for k in range(n)]
+
+
+def test_nms_kernel_identical_boxes_keep_one(cuda):
+    boxes = torch.tensor([10.0, 20.0, 90.0, 80.0]).reshape(1, 4, 1) \
+        .expand(2, 4, 300).contiguous().to(cuda)
+    valid = torch.ones(2, 300, dtype=torch.bool, device=cuda)
+    valid[1, 0] = False                  # then the second box is the one
+    got = nms_keep(boxes, valid, 0.7).cpu()
+    assert got.sum(dim=1).tolist() == [1, 1]
+    assert got[0, 0] and got[1, 1]
+
+
+@pytest.mark.parametrize("thresh", [0.0, 1.0])
+def test_nms_kernel_threshold_edges(cuda, thresh):
+    """0.0 takes the full division for every pair (disjoint ones suppress:
+    IoU 0 >= 0); 1.0 suppresses identical boxes only, by the inclusive
+    compare."""
+    rng = np.random.RandomState(9)
+    boxes = torch.from_numpy(_sorted_boxes(rng, 2, 700))
+    boxes[:, :, 300:320] = boxes[:, :, 5:6]          # copies of box 5
+    boxes = boxes.contiguous().to(cuda)
+    valid = torch.from_numpy(rng.uniform(size=(2, 700)) >= 0.1).to(cuda)
+    valid[:, 5] = True
+    got = nms_keep(boxes, valid, thresh)
+    assert torch.equal(got, nms_mask(boxes, valid, thresh))
+    if thresh == 0.0:
+        assert got.sum(dim=1).tolist() == [1, 1]
+    else:
+        assert not got[:, 300:320].any()
 
 
 def _rois(rng, b, p, h, w):
@@ -146,6 +207,48 @@ def test_roi_pool_backward_kernel_tie_goes_to_one_cell(cuda):
     assert torch.equal(got, roi_pool_grad(feat, rois, g))
     assert float(got.sum()) == 49 * 4
     assert set(got.unique().tolist()) <= {0.0, 1.0, 2.0, 3.0, 4.0}
+
+
+def _backward_case(case, rng, h=38, w=56, c=512):
+    """(feat, rois [1, P, 4], g) for the awkward backward cases."""
+    feat = np.maximum(rng.randn(1, h, w, c), 0).astype(np.float32)
+    if case == "identical":       # every cell's chain is 128 adds long
+        rois = np.repeat(_rois(rng, 1, 1, h, w), 128, axis=1)
+    elif case == "whole_map":
+        rois = np.tile(np.array([0, 0, w * 16 - 1, h * 16 - 1], np.float32),
+                       (1, 6, 1))
+    elif case == "outside":       # bins past the map's edge are empty
+        rois = np.array([[[-300, -200, 100, 90], [w * 16 - 60, -40,
+                          w * 16 + 400, 200], [-50, h * 16 - 70, 120,
+                          h * 16 + 300], [w * 8, h * 8, w * 40, h * 40]]],
+                        np.float32)
+    else:                         # ties: a map of three values
+        feat = (1.0 + rng.randint(0, 3, (1, h, w, c)) / 4096.0) \
+            .astype(np.float32)
+        rois = _rois(rng, 1, 40, h, w)
+    g = rng.randn(1, rois.shape[1], 49 * c).astype(np.float32)
+    return feat, rois, g
+
+
+@pytest.mark.parametrize("case", ["identical", "whole_map", "outside",
+                                  "ties"])
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("flavor", ["gpu", "cpu"])
+def test_roi_pool_backward_kernel_awkward_cases(cuda, case, bf16, flavor):
+    """Both instances equal their plain versions bit for bit where the
+    gather's order and the argmax table are hardest."""
+    rng = np.random.RandomState(len(case))
+    feat, rois, g = (torch.from_numpy(a).to(cuda)
+                     for a in _backward_case(case, rng))
+    kernel = roi_pool_fc_backward_bf16 if bf16 else roi_pool_fc_backward
+    plain = roi_pool_grad_bf16 if bf16 else roi_pool_grad
+    if bf16:
+        g = g.to(torch.bfloat16)
+    got = kernel(feat, rois, g, flavor=flavor)
+    want = plain(feat, rois, g, flavor=flavor)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert (got != 0).any()
 
 
 def test_roi_pool_fc_autograd_on_the_card(cuda):

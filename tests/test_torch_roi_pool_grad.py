@@ -1,5 +1,5 @@
 """The port's ROI-pool backward, ``ops/roi_pool.py:roi_pool_grad`` (the plain
-version of the CUDA kernel ``roi_pool_bwd``) and the CPU autograd path of
+version of the CUDA kernel ``wssdl_roi_pool_bwd``) and the CPU autograd path of
 ``ops/roi_pool_cuda.py:roi_pool_fc``, against the VJP of the JAX package's
 Pallas kernels run in interpret mode, as ``tests/test_roi_pool_pallas.py``
 runs them: ``roi_pool_image`` (``_bwd_kernel``) and the flat

@@ -34,9 +34,8 @@
 // integer operations each block recomputes from the ROI row.
 //
 // ---------------------------------------------------------------------------
-// Backward (roi_pool_bwd_kernel, after roi_rows_active_kernel): the VJP of
-// the pool with respect to feat.  Replaces the TPU kernel
-// wssdl_bus_tpu/ops/roi_pool_pallas.py:_bwd_kernel (reached from
+// Backward: the VJP of the pool with respect to feat.  Replaces the TPU
+// kernel wssdl_bus_tpu/ops/roi_pool_pallas.py:_bwd_kernel (reached from
 // roi_pool_fc's f32 VJP, _fc_vjp_bwd) and computes what it computes, which
 // is not what amax's autograd computes:
 //   * for a non-empty bin (i, j) and channel c, w* is the first column of
@@ -46,25 +45,41 @@
 //     nothing;
 //   * a ROI whose whole cotangent row is zero adds nothing and is skipped
 //     (in the weak group only the MIL-selected ROI of each bag has a
-//     nonzero row: about 1 of 2000).
+//     nonzero row: about 1 of 2000);
+//   * the order of sums, per cell: ROIs ascending; within a ROI, bin rows i
+//     ascending; within a row, the cotangents of the bins whose chosen cell
+//     it is, summed in j order first (ops/roi_pool.py:roi_pool_grad).
 // Bins of one ROI overlap by a row or column under the "gpu" edges, and
-// ROIs overlap each other, so contributions meet on cells.  The design is
-// deterministic instead of atomic: one block owns the slice (image b,
-// channels 4*cg .. 4*cg+3) of dfeat in shared memory, walks the active ROIs
-// in ascending order and adds in the Pallas kernel's order (bin rows i
-// ascending; within a row, the cotangents of bins sharing a column summed
-// in j order first).  The result equals the plain version
-// (ops/roi_pool.py:roi_pool_grad) bit for bit.
+// ROIs overlap each other, so contributions meet on cells.
 //
-// What bounds it: reading the cotangent.  Finding the zero rows reads all
-// of it once, 2000 x 49 x 512 x 4 B = 200 MB per weak image, in a separate
-// coalesced pass (roi_rows_active_kernel, one block per ROI row); the
-// scatter then reads only the active rows, the feature cells of their bins
-// (from L2: a 38 x 51 x 512 map is 4 MB) and writes dfeat once.
+// What bounds it: reading the cotangent (401 MB f32 for the weak group of
+// a combined step, 0.12 ms) and, for the active rows, reading their window
+// cells (feat stays in L2: a 38 x 56 x 512 map is 4.4 MB) and writing
+// dfeat once.  Its Pallas form carries dfeat in VMEM across a sequential
+// grid, and its first port walked the ROIs serially in one block per
+// (image, 4 channels): 128 blocks, the sums on 4 threads of 256.  This
+// design is a deterministic gather in four launches, exact by construction,
+// no atomics, every one parallel over thousands of threads:
+//   1. roi_rows_active_kernel: one block per cotangent row flags the rows
+//      with a nonzero (or NaN) entry: the coalesced read of all of g;
+//   2. roi_rows_compact_kernel: one block compacts the flagged rows into an
+//      ascending list with each image's first position, on the device, so
+//      the later passes see a dense list without a host sync;
+//   3. roi_argmax_kernel: over (listed row, bin) items, grid-stride, threads
+//      over channels (a warp reads a window cell as 512 contiguous bytes),
+//      the chosen cell of each (row, bin, channel) into a table (int16 cell
+//      indices where h * w fits: 200 MB at most for the weak group);
+//   4. roi_gather_kernel: over (2 x 4 cell tile, 128 channels, image); the
+//      block compacts the listed rows whose bins overlap its tile, then a
+//      warp per cell walks them in order and adds, per bin row holding the
+//      cell, the j-ordered sum of the cotangents of the bins that chose it
+//      to a register accumulator: roi_pool_grad's order for that cell.
+//      dfeat is written once, coalesced.
+// The result equals the plain version bit for bit.
 //
 // ---------------------------------------------------------------------------
 // The bf16 output option (roi_pool_fc(..., out_dtype=bfloat16)): instances
-// of the same three kernels on other element types, no new design.
+// of the same kernels on other element types, no new design.
 //   * Forward: the output is bf16(max(feat)); rounding is monotone, so it
 //     commutes with max and the f32 forward rounds at the store (to
 //     nearest, ties to even, as torch's and XLA's casts).  Half the bytes
@@ -80,15 +95,19 @@
 //     _fc_bwd_kernel's placement and order of sums are _bwd_kernel's (both
 //     take the first argmax column of each bin's column maxima, sum the
 //     cotangents of a bin row's bins that share a column in j order, then
-//     add that sum at the column's first max row), so the f32 kernel's walk
-//     serves unchanged.  What bounds it: reading the cotangent, now half the
-//     bytes (200.7 MB for the weak group of a combined step).
+//     add that sum at the column's first max row), so the f32 kernels'
+//     passes serve unchanged.  What bounds it: reading the cotangent, now
+//     half the bytes (200.7 MB for the weak group of a combined step).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
 namespace {
+
+// Largest h * w whose cell indices the backward's argmax table holds in
+// int16 (-1 marks an empty bin).
+constexpr int kShortCells = 32767;
 
 __device__ __forceinline__ int quantize(float v, float scale) {
   return (int)floorf(__fadd_rn(__fmul_rn(v, scale), 0.5f));
@@ -206,152 +225,268 @@ __global__ void roi_rows_active_kernel(const GVec* __restrict__ g, int row4,
   if (threadIdx.x == 0) active[blockIdx.x] = any;
 }
 
-// Grid (c4, batch): block (cg, b) owns dfeat[b, :, :, 4cg .. 4cg+3].
-// blockDim.x is a multiple of 32 and at most 1024.
-// Dynamic shared memory: the owned slice [h * w] float4, then for a batch
-// of `rb` ROIs x `nb` bins the chosen cell of each lane (int4, -1 = empty
-// bin) and its cotangent (float4), then the compacted ROI list.
-// GVec: the cotangent's element type; kRound: rank bf16(feat) (the bf16
-// output's VJP) instead of feat.
-template <typename GVec, bool kRound>
-__global__ void roi_pool_bwd_kernel(const float4* __restrict__ feat,
-                                    const float* __restrict__ rois,
-                                    const GVec* __restrict__ g,
-                                    const int* __restrict__ active, int p,
-                                    int h, int w, int c4, int pooled_h,
-                                    int pooled_w, float spatial_scale,
-                                    int flavor, int rb,
-                                    float4* __restrict__ dfeat) {
-  extern __shared__ float4 smem[];
-  const int cg = blockIdx.x;
-  const int b = blockIdx.y;
-  const int hw = h * w;
-  const int nb = pooled_h * pooled_w;
-  float* acc = reinterpret_cast<float*>(smem);                 // [hw][4]
-  int4* pos = reinterpret_cast<int4*>(smem + hw);              // [rb * nb]
-  float4* gv = smem + hw + rb * nb;                            // [rb * nb]
-  int* list = reinterpret_cast<int*>(smem + hw + 2 * rb * nb); // [blockDim]
-  __shared__ int n_list;
+// One block of 1024 threads: the flagged rows of all images, compacted in
+// ascending order into list[0 .. total), and img_start[b] = the position of
+// image b's first listed row (img_start[batch] = total).  Launched even for
+// p == 0, so that the later passes read valid counts without a host sync.
+__global__ void __launch_bounds__(1024)
+    roi_rows_compact_kernel(const int* __restrict__ active, int batch, int p,
+                            int* __restrict__ list,
+                            int* __restrict__ img_start) {
   __shared__ int warp_n[32];
-
-  for (int k = threadIdx.x; k < hw; k += blockDim.x)
-    smem[k] = make_float4(0.f, 0.f, 0.f, 0.f);
-
-  const float4* fb = feat + (size_t)b * hw * c4 + cg;
-  for (int base = 0; base < p; base += blockDim.x) {
-    // compact this chunk's active ROIs, in ascending order
-    const int r_mine = base + threadIdx.x;
-    const int is_active = r_mine < p && active[(size_t)b * p + r_mine];
-    const unsigned ballot = __ballot_sync(0xffffffffu, is_active);
-    const int lane = threadIdx.x & 31;
-    const int warp = threadIdx.x >> 5;
-    if (lane == 0) warp_n[warp] = __popc(ballot);
+  __shared__ int s_base, s_chunk;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int rows = batch * p;
+  if (tid == 0) s_base = 0;
+  if (p == 0)
+    for (int b = tid; b <= batch; b += blockDim.x) img_start[b] = 0;
+  __syncthreads();
+  for (int base = 0; base < rows; base += blockDim.x) {
+    const int q = base + tid;
+    const int a = q < rows && active[q];
+    const unsigned bal = __ballot_sync(0xffffffffu, a);
+    if (lane == 0) warp_n[warp] = __popc(bal);
     __syncthreads();
-    if (threadIdx.x == 0) {
+    if (tid == 0) {
       int n = 0;
       for (int k = 0; k < (int)(blockDim.x >> 5); ++k) {
         const int m = warp_n[k];
         warp_n[k] = n;
         n += m;
       }
-      n_list = n;
+      s_chunk = n;
     }
     __syncthreads();
-    if (is_active)
-      list[warp_n[warp] + __popc(ballot & ((1u << lane) - 1u))] = r_mine;
+    const int pos = s_base + warp_n[warp] + __popc(bal & ((1u << lane) - 1u));
+    if (a) list[pos] = q;
+    if (q < rows && q % p == 0) img_start[q / p] = pos;
     __syncthreads();
-    const int n_act = n_list;
-    for (int k0 = 0; k0 < n_act; k0 += rb) {
-      // phase 1: each thread finds one (ROI, bin)'s cells for 4 channels
-      const int t = threadIdx.x;
-      const int slot = t / nb;
-      if (slot < rb && k0 + slot < n_act) {
-        const int bin = t - slot * nb;
-        const int r = list[k0 + slot];
-        const size_t bp = (size_t)b * p + r;
-        const float* roi = rois + bp * 4;
-        const int rsw = quantize(roi[0], spatial_scale);
-        const int rsh = quantize(roi[1], spatial_scale);
-        const int rew = quantize(roi[2], spatial_scale);
-        const int reh = quantize(roi[3], spatial_scale);
-        const int roi_w = max(rew - rsw + 1, 1);
-        const int roi_h = max(reh - rsh + 1, 1);
-        const int i = bin / pooled_w;
-        const int j = bin - i * pooled_w;
-        int hlo, hhi, wlo, whi;
-        bin_edges(i, rsh, roi_h, pooled_h, h, flavor, &hlo, &hhi);
-        bin_edges(j, rsw, roi_w, pooled_w, w, flavor, &wlo, &whi);
-        int4 cell = make_int4(-1, -1, -1, -1);
-        if (hhi > hlo && whi > wlo) {
-          float4 best = make_float4(0.f, 0.f, 0.f, 0.f);
-          int4 bh = make_int4(0, 0, 0, 0), bw = bh;
-          for (int x = wlo; x < whi; ++x) {
-            // column max over the bin's rows, and its first row
-            float4 cm =
-                route_value<kRound>(fb[((size_t)hlo * w + x) * c4]);
-            int4 ch = make_int4(hlo, hlo, hlo, hlo);
-            for (int y = hlo + 1; y < hhi; ++y) {
-              const float4 v =
-                  route_value<kRound>(fb[((size_t)y * w + x) * c4]);
-              if (v.x > cm.x) { cm.x = v.x; ch.x = y; }
-              if (v.y > cm.y) { cm.y = v.y; ch.y = y; }
-              if (v.z > cm.z) { cm.z = v.z; ch.z = y; }
-              if (v.w > cm.w) { cm.w = v.w; ch.w = y; }
-            }
-            // the first column whose max is the bin max
-            const bool first = x == wlo;
-            if (first || cm.x > best.x) {
-              best.x = cm.x; bh.x = ch.x; bw.x = x;
-            }
-            if (first || cm.y > best.y) {
-              best.y = cm.y; bh.y = ch.y; bw.y = x;
-            }
-            if (first || cm.z > best.z) {
-              best.z = cm.z; bh.z = ch.z; bw.z = x;
-            }
-            if (first || cm.w > best.w) {
-              best.w = cm.w; bh.w = ch.w; bw.w = x;
-            }
+    if (tid == 0) s_base += s_chunk;
+  }
+  __syncthreads();
+  if (tid == 0 && p > 0) img_start[batch] = s_base;
+}
+
+// Four channels' chosen cells: int16 when every cell index h*w+x fits,
+// else int32; -1 marks an empty bin.
+__device__ __forceinline__ void store_cells(int4 v, short4* out) {
+  *out = make_short4((short)v.x, (short)v.y, (short)v.z, (short)v.w);
+}
+__device__ __forceinline__ void store_cells(int4 v, int4* out) { *out = v; }
+__device__ __forceinline__ int4 load_cells(const short4* p) {
+  const short4 v = *p;
+  return make_int4(v.x, v.y, v.z, v.w);
+}
+__device__ __forceinline__ int4 load_cells(const int4* p) { return *p; }
+
+// The argmax pass: for each (listed row k, bin) and four channels, the cell
+// h*·W + w* the bin's cotangent goes to (the first column of the bin whose
+// column maximum is the bin maximum, the first row attaining it), ranking
+// route_value<kRound>(feat).  Grid-stride over the total(k) x bin items,
+// whose count only the device knows; threads over channels, so a warp reads
+// each window cell as 512 contiguous bytes, as the forward does.
+template <typename Cell4, bool kRound>
+__global__ void roi_argmax_kernel(const float4* __restrict__ feat,
+                                  const float* __restrict__ rois,
+                                  const int* __restrict__ list,
+                                  const int* __restrict__ img_start,
+                                  int batch, int p, int h, int w, int c4,
+                                  int pooled_h, int pooled_w,
+                                  float spatial_scale, int flavor,
+                                  Cell4* __restrict__ table) {
+  const int nb = pooled_h * pooled_w;
+  const long long total = (long long)img_start[batch] * nb;
+  for (long long item = blockIdx.x; item < total; item += gridDim.x) {
+    const int k = (int)(item / nb);
+    const int bin = (int)(item - (long long)k * nb);
+    const int row = list[k];
+    const int b = row / p;
+    const float* roi = rois + (size_t)row * 4;
+    const int rsw = quantize(roi[0], spatial_scale);
+    const int rsh = quantize(roi[1], spatial_scale);
+    const int rew = quantize(roi[2], spatial_scale);
+    const int reh = quantize(roi[3], spatial_scale);
+    const int roi_w = max(rew - rsw + 1, 1);
+    const int roi_h = max(reh - rsh + 1, 1);
+    const int i = bin / pooled_w;
+    const int j = bin - i * pooled_w;
+    int hlo, hhi, wlo, whi;
+    bin_edges(i, rsh, roi_h, pooled_h, h, flavor, &hlo, &hhi);
+    bin_edges(j, rsw, roi_w, pooled_w, w, flavor, &wlo, &whi);
+    const float4* fb = feat + (size_t)b * h * w * c4;
+    Cell4* out = table + ((size_t)k * nb + bin) * c4;
+    for (int cg = threadIdx.x; cg < c4; cg += blockDim.x) {
+      int4 cell = make_int4(-1, -1, -1, -1);
+      if (hhi > hlo && whi > wlo) {
+        float4 best = make_float4(0.f, 0.f, 0.f, 0.f);
+        int4 bh = make_int4(0, 0, 0, 0), bw = bh;
+        for (int x = wlo; x < whi; ++x) {
+          // column max over the bin's rows, and its first row
+          float4 cm =
+              route_value<kRound>(fb[((size_t)hlo * w + x) * c4 + cg]);
+          int4 ch = make_int4(hlo, hlo, hlo, hlo);
+          for (int y = hlo + 1; y < hhi; ++y) {
+            const float4 v =
+                route_value<kRound>(fb[((size_t)y * w + x) * c4 + cg]);
+            if (v.x > cm.x) { cm.x = v.x; ch.x = y; }
+            if (v.y > cm.y) { cm.y = v.y; ch.y = y; }
+            if (v.z > cm.z) { cm.z = v.z; ch.z = y; }
+            if (v.w > cm.w) { cm.w = v.w; ch.w = y; }
           }
-          cell = make_int4(bh.x * w + bw.x, bh.y * w + bw.y,
-                           bh.z * w + bw.z, bh.w * w + bw.w);
+          // the first column whose max is the bin max
+          const bool first = x == wlo;
+          if (first || cm.x > best.x) { best.x = cm.x; bh.x = ch.x; bw.x = x; }
+          if (first || cm.y > best.y) { best.y = cm.y; bh.y = ch.y; bw.y = x; }
+          if (first || cm.z > best.z) { best.z = cm.z; bh.z = ch.z; bw.z = x; }
+          if (first || cm.w > best.w) { best.w = cm.w; bh.w = ch.w; bw.w = x; }
         }
-        pos[t] = cell;
-        gv[t] = to_float4(g[(bp * nb + bin) * c4 + cg]);
+        cell = make_int4(bh.x * w + bw.x, bh.y * w + bw.y, bh.z * w + bw.z,
+                         bh.w * w + bw.w);
       }
-      __syncthreads();
-      // phase 2: one thread per channel adds in the Pallas kernel's order
-      if (threadIdx.x < 4) {
-        const int lane = threadIdx.x;
-        const int* pl = reinterpret_cast<const int*>(pos);
-        const float* gl = reinterpret_cast<const float*>(gv);
-        const int n_slots = min(rb, n_act - k0);
-        for (int s = 0; s < n_slots; ++s) {
-          for (int i = 0; i < pooled_h; ++i) {
-            const int row0 = s * nb + i * pooled_w;
-            unsigned done = 0;
-            for (int j = 0; j < pooled_w; ++j) {
-              if (done & (1u << j)) continue;
-              const int cj = pl[(row0 + j) * 4 + lane];
-              if (cj < 0) continue;
-              float sum = gl[(row0 + j) * 4 + lane];
-              for (int j2 = j + 1; j2 < pooled_w; ++j2) {
-                if (pl[(row0 + j2) * 4 + lane] == cj) {
-                  sum += gl[(row0 + j2) * 4 + lane];
-                  done |= 1u << j2;
-                }
-              }
-              acc[cj * 4 + lane] += sum;
-            }
-          }
-        }
-      }
-      __syncthreads();
+      store_cells(cell, out + cg);
     }
   }
-  float4* ob = dfeat + (size_t)b * hw * c4 + cg;
-  for (int k = threadIdx.x; k < hw; k += blockDim.x)
-    ob[(size_t)k * c4] = smem[k];
+}
+
+constexpr int kGatherH = 2;        // cells of a gather tile: 2 rows
+constexpr int kGatherW = 4;        // x 4 columns
+constexpr int kGatherWarps = 8;    // 256 threads; a warp per cell
+constexpr int kGatherThreads = 32 * kGatherWarps;
+
+__device__ __forceinline__ float add_if(bool hit, float s, float v) {
+  return hit ? __fadd_rn(s, v) : s;
+}
+
+// The gather pass.  Grid (tiles, channel slices of 128, batch): block
+// (tile, slice, b) owns dfeat[b, tile's cells, 128 channels] and writes it
+// once.  Lane l of a warp holds channels 4 * (32 * slice + l) .. + 3 of one
+// cell.  For each chunk of the image's listed rows (ascending), the block
+// first compacts the rows whose bins overlap its tile into shared memory,
+// with their bin edges; then each warp, for each of its cells, walks them in
+// order and adds, per bin row i (ascending) holding the cell's row, the sum
+// in j order of the cotangents of the bins j holding its column whose
+// chosen cell it is: roi_pool_grad's order of sums for that cell.
+// Dynamic shared memory: slot[chunk], then hlo, hhi [chunk][pooled_h] and
+// wlo, whi [chunk][pooled_w] (int).
+template <typename GVec, typename Cell4>
+__global__ void __launch_bounds__(kGatherThreads)
+    roi_gather_kernel(const float* __restrict__ rois,
+                      const GVec* __restrict__ g,
+                      const int* __restrict__ list,
+                      const int* __restrict__ img_start,
+                      const Cell4* __restrict__ table, int h, int w, int c4,
+                      int pooled_h, int pooled_w, float spatial_scale,
+                      int flavor, int chunk, float4* __restrict__ dfeat) {
+  extern __shared__ int gsm[];
+  int* slot = gsm;
+  int* hlo_s = slot + chunk;
+  int* hhi_s = hlo_s + chunk * pooled_h;
+  int* wlo_s = hhi_s + chunk * pooled_h;
+  int* whi_s = wlo_s + chunk * pooled_w;
+  __shared__ int warp_n[kGatherWarps];
+  __shared__ int s_n;
+
+  const int tiles_x = (w + kGatherW - 1) / kGatherW;
+  const int ty0 = (blockIdx.x / tiles_x) * kGatherH;
+  const int tx0 = (blockIdx.x % tiles_x) * kGatherW;
+  const int ty1 = min(ty0 + kGatherH, h), tx1 = min(tx0 + kGatherW, w);
+  const int b = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int cg = blockIdx.y * 32 + lane;
+  const bool has_c = cg < c4;
+  const int nb = pooled_h * pooled_w;
+  const int k0 = img_start[b], k1 = img_start[b + 1];
+  float4* ob = dfeat + (size_t)b * h * w * c4;
+
+  bool first = true;
+  for (int base = k0; first || base < k1; base += chunk) {
+    // compact this chunk's rows that overlap the tile, in ascending order
+    const int k = base + tid;
+    bool hit = false;
+    int rsw = 0, rsh = 0, roi_w = 1, roi_h = 1;
+    if (tid < chunk && k < k1) {
+      const float* roi = rois + (size_t)list[k] * 4;
+      rsw = quantize(roi[0], spatial_scale);
+      rsh = quantize(roi[1], spatial_scale);
+      roi_w = max(quantize(roi[2], spatial_scale) - rsw + 1, 1);
+      roi_h = max(quantize(roi[3], spatial_scale) - rsh + 1, 1);
+      // bins' lo and hi are non-decreasing in the bin index: their union
+      // spans [lo of bin 0, hi of the last bin)
+      int ylo, yhi, xlo, xhi, dummy;
+      bin_edges(0, rsh, roi_h, pooled_h, h, flavor, &ylo, &dummy);
+      bin_edges(pooled_h - 1, rsh, roi_h, pooled_h, h, flavor, &dummy, &yhi);
+      bin_edges(0, rsw, roi_w, pooled_w, w, flavor, &xlo, &dummy);
+      bin_edges(pooled_w - 1, rsw, roi_w, pooled_w, w, flavor, &dummy, &xhi);
+      hit = ylo < ty1 && yhi > ty0 && xlo < tx1 && xhi > tx0;
+    }
+    const unsigned bal = __ballot_sync(0xffffffffu, hit);
+    if (lane == 0) warp_n[warp] = __popc(bal);
+    __syncthreads();
+    if (tid == 0) {
+      int n = 0;
+      for (int q = 0; q < kGatherWarps; ++q) {
+        const int m = warp_n[q];
+        warp_n[q] = n;
+        n += m;
+      }
+      s_n = n;
+    }
+    __syncthreads();
+    if (hit) {
+      const int e = warp_n[warp] + __popc(bal & ((1u << lane) - 1u));
+      slot[e] = k;
+      for (int i = 0; i < pooled_h; ++i)
+        bin_edges(i, rsh, roi_h, pooled_h, h, flavor,
+                  &hlo_s[e * pooled_h + i], &hhi_s[e * pooled_h + i]);
+      for (int j = 0; j < pooled_w; ++j)
+        bin_edges(j, rsw, roi_w, pooled_w, w, flavor,
+                  &wlo_s[e * pooled_w + j], &whi_s[e * pooled_w + j]);
+    }
+    __syncthreads();
+    const int n_list = s_n;
+
+    for (int cell = warp; cell < kGatherH * kGatherW; cell += kGatherWarps) {
+      const int y = ty0 + cell / kGatherW, x = tx0 + cell % kGatherW;
+      if (y >= h || x >= w) continue;
+      const int me = y * w + x;
+      float4* op = ob + (size_t)me * c4 + cg;
+      float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (!first && has_c) acc = *op;
+      for (int e = 0; e < n_list; ++e) {
+        const int* hl = hlo_s + e * pooled_h;
+        const int* hh = hhi_s + e * pooled_h;
+        const int* wl = wlo_s + e * pooled_w;
+        const int* wh = whi_s + e * pooled_w;
+        if (y < hl[0] || y >= hh[pooled_h - 1] || x < wl[0] ||
+            x >= wh[pooled_w - 1])
+          continue;
+        const int kk = slot[e];
+        const Cell4* tk = table + (size_t)kk * nb * c4 + cg;
+        const GVec* gk = g + (size_t)list[kk] * nb * c4 + cg;
+        for (int i = 0; i < pooled_h && hl[i] <= y; ++i) {
+          if (y >= hh[i]) continue;
+          float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+          for (int j = 0; j < pooled_w && wl[j] <= x; ++j) {
+            if (x >= wh[j] || !has_c) continue;
+            const int bin = i * pooled_w + j;
+            const int4 cc = load_cells(tk + (size_t)bin * c4);
+            const bool hx = cc.x == me, hy = cc.y == me, hz = cc.z == me,
+                       hw = cc.w == me;
+            if (hx | hy | hz | hw) {
+              const float4 gv = to_float4(gk[(size_t)bin * c4]);
+              s = make_float4(add_if(hx, s.x, gv.x), add_if(hy, s.y, gv.y),
+                              add_if(hz, s.z, gv.z), add_if(hw, s.w, gv.w));
+            }
+          }
+          acc = make_float4(__fadd_rn(acc.x, s.x), __fadd_rn(acc.y, s.y),
+                            __fadd_rn(acc.z, s.z), __fadd_rn(acc.w, s.w));
+        }
+      }
+      if (has_c) *op = acc;
+    }
+    first = false;
+    __syncthreads();
+  }
 }
 
 // The forward on OutVec's element type; see wssdl_roi_pool_fwd.
@@ -371,38 +506,81 @@ int launch_forward(const float* feat, const float* rois, int batch, int h,
   return (int)cudaGetLastError();
 }
 
-// The backward for a GVec cotangent; see wssdl_roi_pool_bwd.
+// The backward for a GVec cotangent with Cell4 argmax entries; see
+// wssdl_roi_pool_bwd.
+template <typename GVec, bool kRound, typename Cell4>
+int launch_backward_cells(const float* feat, const float* rois, const void* g,
+                          int batch, int h, int w, int c, int p, int pooled_h,
+                          int pooled_w, float spatial_scale, int flavor,
+                          int* work, void* table, float* dfeat,
+                          cudaStream_t stream) {
+  const int c4 = c / 4;
+  const int nb = pooled_h * pooled_w;
+  const int rows = batch * p;
+  int* active = work;
+  int* list = work + rows;
+  int* img_start = work + 2 * rows;
+  const GVec* gv = reinterpret_cast<const GVec*>(g);
+  cudaError_t err;
+  if (rows > 0) {
+    roi_rows_active_kernel<GVec><<<rows, 256, 0, stream>>>(gv, nb * c4,
+                                                           active);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  }
+  roi_rows_compact_kernel<<<1, 1024, 0, stream>>>(active, batch, p, list,
+                                                  img_start);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  Cell4* cells = reinterpret_cast<Cell4*>(table);
+  if (rows > 0) {
+    int threads = ((c4 + 31) / 32) * 32;
+    threads = threads < 32 ? 32 : (threads > 256 ? 256 : threads);
+    const long long items = (long long)rows * nb;
+    const int grid = (int)(items < 132 * 16 ? items : 132 * 16);
+    roi_argmax_kernel<Cell4, kRound><<<grid, threads, 0, stream>>>(
+        reinterpret_cast<const float4*>(feat), rois, list, img_start, batch,
+        p, h, w, c4, pooled_h, pooled_w, spatial_scale, flavor, cells);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  }
+  // the gather's shared memory: a chunk of rows' slots and bin edges
+  int dev = 0, optin = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+  if ((err = cudaDeviceGetAttribute(
+           &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev)) !=
+      cudaSuccess)
+    return (int)err;
+  const size_t per_row = (1 + 2 * (size_t)(pooled_h + pooled_w)) * sizeof(int);
+  // 128 rows a chunk: 15 KB at 7 x 7 bins, so eight blocks fit an SM
+  int chunk = kGatherThreads / 2;
+  while (chunk > 32 && chunk * per_row + 256 > (size_t)optin) chunk /= 2;
+  const size_t smem = chunk * per_row;
+  if (smem + 256 > (size_t)optin) return (int)cudaErrorInvalidValue;
+  err = cudaFuncSetAttribute(roi_gather_kernel<GVec, Cell4>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int tiles = ((h + kGatherH - 1) / kGatherH) *
+                    ((w + kGatherW - 1) / kGatherW);
+  const dim3 grid(tiles, (c4 + 31) / 32, batch);
+  roi_gather_kernel<GVec, Cell4><<<grid, kGatherThreads, smem, stream>>>(
+      rois, gv, list, img_start, cells, h, w, c4, pooled_h, pooled_w,
+      spatial_scale, flavor, chunk, reinterpret_cast<float4*>(dfeat));
+  return (int)cudaGetLastError();
+}
+
 template <typename GVec, bool kRound>
 int launch_backward(const float* feat, const float* rois, const void* g,
                     int batch, int h, int w, int c, int p, int pooled_h,
-                    int pooled_w, float spatial_scale, int flavor,
-                    int* active, float* dfeat, cudaStream_t stream) {
+                    int pooled_w, float spatial_scale, int flavor, int* work,
+                    void* table, float* dfeat, cudaStream_t stream) {
   if (batch <= 0 || h <= 0 || w <= 0 || c <= 0) return 0;
-  if (pooled_w > 32) return (int)cudaErrorInvalidValue;
-  const int c4 = c / 4;
-  const int nb = pooled_h * pooled_w;
-  const int threads = 256;
-  const int rb = threads / nb;
-  if (rb < 1) return (int)cudaErrorInvalidValue;
-  const size_t smem = ((size_t)h * w + 2 * (size_t)rb * nb) * sizeof(float4)
-                      + threads * sizeof(int);
-  cudaError_t err = cudaFuncSetAttribute(
-      roi_pool_bwd_kernel<GVec, kRound>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const GVec* gv = reinterpret_cast<const GVec*>(g);
-  if (p > 0) {
-    roi_rows_active_kernel<GVec><<<batch * p, 256, 0, stream>>>(gv, nb * c4,
-                                                               active);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  const dim3 grid(c4, batch);
-  roi_pool_bwd_kernel<GVec, kRound><<<grid, threads, smem, stream>>>(
-      reinterpret_cast<const float4*>(feat), rois, gv, active, p, h, w, c4,
-      pooled_h, pooled_w, spatial_scale, flavor, rb,
-      reinterpret_cast<float4*>(dfeat));
-  return (int)cudaGetLastError();
+  if (pooled_h <= 0 || pooled_w <= 0) return (int)cudaErrorInvalidValue;
+  if (h * w <= kShortCells)
+    return launch_backward_cells<GVec, kRound, short4>(
+        feat, rois, g, batch, h, w, c, p, pooled_h, pooled_w, spatial_scale,
+        flavor, work, table, dfeat, stream);
+  return launch_backward_cells<GVec, kRound, int4>(
+      feat, rois, g, batch, h, w, c, p, pooled_h, pooled_w, spatial_scale,
+      flavor, work, table, dfeat, stream);
 }
 
 }  // namespace
@@ -432,19 +610,21 @@ int wssdl_roi_pool_fwd_bf16(const float* feat, const float* rois, int batch,
 }
 
 // The backward.  feat [batch, h, w, c] and rois as for the forward, g the
-// cotangent [batch, p, pooled_h, pooled_w, c] f32 (16-byte aligned), active
-// an int scratch of batch * p entries, dfeat [batch, h, w, c] f32 (16-byte
-// aligned; every element is written).  pooled_w <= 32.  Launches on
-// `stream`, does not synchronise, returns the cudaError_t of the launches
-// (cudaErrorInvalidValue when the owned dfeat slice does not fit in shared
-// memory).
+// cotangent [batch, p, pooled_h, pooled_w, c] f32 (16-byte aligned), work an
+// int scratch of 2 * batch * p + batch + 1 entries (row flags, the compacted
+// row list, each image's first list position), table a scratch of
+// batch * p * pooled_h * pooled_w * c cell indices (int16 when
+// h * w <= 32767, else int32; 16-byte aligned), dfeat [batch, h, w, c] f32
+// (16-byte aligned; every element is written).  Launches on `stream`, does
+// not synchronise, returns the cudaError_t of the launches.
 int wssdl_roi_pool_bwd(const float* feat, const float* rois, const float* g,
                        int batch, int h, int w, int c, int p, int pooled_h,
                        int pooled_w, float spatial_scale, int flavor,
-                       int* active, float* dfeat, cudaStream_t stream) {
+                       int* work, void* table, float* dfeat,
+                       cudaStream_t stream) {
   return launch_backward<float4, false>(feat, rois, g, batch, h, w, c, p,
                                         pooled_h, pooled_w, spatial_scale,
-                                        flavor, active, dfeat, stream);
+                                        flavor, work, table, dfeat, stream);
 }
 
 // The backward of the bf16 output: g bf16 (8-byte aligned), routing on
@@ -452,11 +632,11 @@ int wssdl_roi_pool_bwd(const float* feat, const float* rois, const float* g,
 int wssdl_roi_pool_bwd_bf16(const float* feat, const float* rois,
                             const void* g, int batch, int h, int w, int c,
                             int p, int pooled_h, int pooled_w,
-                            float spatial_scale, int flavor, int* active,
-                            float* dfeat, cudaStream_t stream) {
+                            float spatial_scale, int flavor, int* work,
+                            void* table, float* dfeat, cudaStream_t stream) {
   return launch_backward<uint2, true>(feat, rois, g, batch, h, w, c, p,
                                       pooled_h, pooled_w, spatial_scale,
-                                      flavor, active, dfeat, stream);
+                                      flavor, work, table, dfeat, stream);
 }
 
 }  // extern "C"

@@ -15,20 +15,20 @@ import torch
 
 from wssdl_bus_tpu_torch.ops.nms import nms_mask
 
-_TILE = 64   # boxes per mask word (csrc/nms.cu kTile)
-
 
 @functools.lru_cache(maxsize=None)
 def _lib():
     from wssdl_bus_tpu_torch.ops import _build
 
     lib = _build.load("nms")
-    fn = lib.wssdl_nms_keep
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p]
-    return fn
+    lib.wssdl_nms_keep.restype = ctypes.c_int
+    lib.wssdl_nms_keep.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                   ctypes.c_int, ctypes.c_int,
+                                   ctypes.c_float, ctypes.c_void_p,
+                                   ctypes.c_void_p, ctypes.c_void_p]
+    lib.wssdl_nms_scratch_bytes.restype = ctypes.c_longlong
+    lib.wssdl_nms_scratch_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+    return lib
 
 
 def nms_keep(boxes_t: torch.Tensor, valid: torch.Tensor,
@@ -59,13 +59,16 @@ def nms_keep(boxes_t: torch.Tensor, valid: torch.Tensor,
     keep = torch.empty((b, n), dtype=torch.bool, device=boxes_t.device)
     if b == 0 or n == 0:
         return keep
-    words = -(-n // _TILE)
-    mask = torch.empty((b, n, words), dtype=torch.int64,
-                       device=boxes_t.device)
+    lib = _lib()
+    # the kernels' scratch (csrc/nms.cu): the listed valid boxes and the
+    # mask store of every image
+    scratch = torch.empty((lib.wssdl_nms_scratch_bytes(b, n),),
+                          dtype=torch.uint8, device=boxes_t.device)
     with torch.cuda.device(boxes_t.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _lib()(boxes_t.data_ptr(), valid.data_ptr(), b, n,
-                     float(thresh), mask.data_ptr(), keep.data_ptr(), stream)
+        err = lib.wssdl_nms_keep(boxes_t.data_ptr(), valid.data_ptr(), b, n,
+                                 float(thresh), scratch.data_ptr(),
+                                 keep.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"nms kernel launch failed: cudaError {err}")
     nms_keep.launches += 1

@@ -17,7 +17,7 @@ W, and the pool is two masked max reductions (rows, then columns).  Max is
 exact, so this equals the kernel bit for bit.
 
 :func:`roi_pool_grad` is the backward: the plain version of the CUDA kernel
-``roi_pool_bwd`` and the counterpart of the Pallas kernel
+``wssdl_roi_pool_bwd`` and the counterpart of the Pallas kernel
 ``wssdl_bus_tpu/ops/roi_pool_pallas.py:_bwd_kernel``, whose placement and
 order of sums it follows (not ``amax``'s autograd, which splits ties).
 :func:`roi_pool_grad_bf16` is the backward of the bf16 output option

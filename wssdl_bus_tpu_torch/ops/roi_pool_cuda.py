@@ -37,6 +37,7 @@ from wssdl_bus_tpu_torch.ops.roi_pool import (roi_pool, roi_pool_grad,
                                               rois_with_batch_index)
 
 _FLAVORS = {"gpu": 0, "cpu": 1}
+_SHORT_CELLS = 32767   # csrc/roi_pool.cu kShortCells
 OUT_DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -49,7 +50,7 @@ def _lib():
     fwd_args = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 7 \
         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
     bwd_args = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 \
-        + [ctypes.c_float, ctypes.c_int] + [ctypes.c_void_p] * 3
+        + [ctypes.c_float, ctypes.c_int] + [ctypes.c_void_p] * 4
     fns = {}
     for dtype, suffix in ((torch.float32, ""), (torch.bfloat16, "_bf16")):
         fwd = getattr(lib, f"wssdl_roi_pool_fwd{suffix}")
@@ -211,20 +212,23 @@ def _launch_backward(feat, rois, grad, pooled_h, pooled_w, spatial_scale,
                          f"{pooled_h * pooled_w * c}]")
     if not grad.is_contiguous() or grad.data_ptr() % 16:
         raise ValueError("grad must be contiguous and 16-byte aligned")
-    if pooled_w > 32:
-        raise ValueError(f"the backward kernel takes pooled_w <= 32, got "
-                         f"{pooled_w}")
     dfeat = torch.empty_like(feat)
-    active = torch.empty((max(b * p, 1),), dtype=torch.int32,
-                         device=feat.device)
     if b == 0:
         return dfeat
+    # the kernels' scratch (csrc/roi_pool.cu, wssdl_roi_pool_bwd): row flags,
+    # the compacted row list and each image's first position; the argmax
+    # table of cell indices y * w + x, int16 where they all fit
+    work = torch.empty((2 * b * p + b + 1,), dtype=torch.int32,
+                       device=feat.device)
+    cell_dtype = torch.int16 if h * w <= _SHORT_CELLS else torch.int32
+    table = torch.empty((max(b * p * pooled_h * pooled_w * c, 8),),
+                        dtype=cell_dtype, device=feat.device)
     with torch.cuda.device(feat.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _lib()[grad.dtype][1](
             feat.data_ptr(), rois.data_ptr(), grad.data_ptr(), b, h, w, c, p,
             pooled_h, pooled_w, float(spatial_scale), _FLAVORS[flavor],
-            active.data_ptr(), dfeat.data_ptr(), stream)
+            work.data_ptr(), table.data_ptr(), dfeat.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"roi_pool backward kernel launch failed: "
                            f"cudaError {err}")

@@ -13,7 +13,7 @@ supervised images, proposals with TRAIN budgets, ROI sampling, the pool and
 the head (with dropout) applied to the supervised ROIs and to the weak
 images' proposals separately, the four supervised losses, weight decay and
 the MIL bag loss, one backward and one optimizer update.  The pool's
-backward is the CUDA kernel ``roi_pool_bwd`` (``ops/roi_pool_cuda.py``).
+backward is a CUDA kernel (``wssdl_roi_pool_bwd``, ``ops/roi_pool_cuda.py``).
 ``Engine.train_step_mil`` is the alternating regime's weak step
 (``_train_step_mil_impl``): the MIL loss alone over weak images.
 
