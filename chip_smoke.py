@@ -11,12 +11,18 @@ Phases (any failure exits non-zero; nothing is caught):
   3. the NMS and ROI-pool forward kernels against their plain PyTorch
      versions on the card, at the shapes the served path gives them (B = 8
      images at the full VGG16 width and the 6000/300 TEST budgets): NMS
-     keep masks must be identical, ROI pool values must differ by exactly
-     0; CUDA-event times of both;
+     keep masks must be identical, ROI pool values (f32 and the bf16
+     store, both flavors, and with NaNs planted in the map) must be equal;
+     CUDA-event times of both, the pool's window cells and the bytes its
+     direct path would read and its shared-memory path stages, the direct
+     path and other slice widths timed beside it; then the direct path
+     once, at a 125 x 125 x 512 map too large for the shared-memory path;
   4. the served path at full width: seeded He weights, synthetic grayscale
      ultrasound-like requests served through ``im_detect_batch`` +
      ``report_detections`` at batch 1 and batch 8, with the kernels' launch
-     counters read around the run; ms/image and peak device memory;
+     counters read around the run (the pool forward's by path: every
+     launch of a main path on the shared-memory path); ms/image and peak
+     device memory;
   5. the training path at full width with the default TRAIN settings (1
      supervised + 2 weak images, RPN 12000 -> 2000 at NMS 0.7, 128 ROIs per
      supervised image, Adam, conv1/conv2 frozen): synthetic speckle images
@@ -41,10 +47,12 @@ Phases (any failure exits non-zero; nothing is caught):
      the cuDNN bf16 composition of the same layers, TFLOP/s and the
      fraction of the bound;
   8. the bf16 output option of the ROI pool at the training shapes: its
-     forward and its backward kernel against their plain versions (values
-     and dfeat identical; the MIL-sparse, dense and tie cotangents of phase
-     5 in bf16), then the op's own path, ``roi_pool_fc(out_dtype=bf16)``
-     under autograd, with the launch counters around it;
+     forward (and the f32 forward, timed on the same ROIs) and its backward
+     kernel against their plain versions (values and dfeat identical; the
+     MIL-sparse, dense and tie cotangents of phase 5 in bf16), then the
+     op's own path, ``roi_pool_fc(out_dtype=bf16)`` under autograd, with
+     the launch counters around it; and, for information, whether the
+     backward routes like ``roi_pool_grad`` when windows hold a NaN;
   9. the opt-in stem paths, ``WSSDL_FUSED_STEM=1`` and then
      ``WSSDL_STEM_TAIL=1``: serving (3 batch-1 + 1 batch-8 requests) and
      training (3 combined + 1 MIL steps) with the counters around each
@@ -172,24 +180,130 @@ def nms_bound(keep, valid):
                                        else "operations"), pairs
 
 
+def window_cells(rois, h: int, w: int, scale) -> int:
+    """Window cells summed over the 7 x 7 "gpu" bins of every ROI."""
+    from wssdl_bus_tpu_torch.ops.roi_pool import _bin_masks, quantize_rois
+
+    rsw, rsh, roi_w, roi_h = quantize_rois(rois.reshape(-1, 4).cpu(), scale)
+    hm, _ = _bin_masks(rsh, roi_h, 7, h, "gpu")
+    wm, _ = _bin_masks(rsw, roi_w, 7, w, "gpu")
+    return int((hm.sum(-1)[:, :, None] * wm.sum(-1)[:, None, :]).sum())
+
+
 def roi_pool_bound(feat, rois, scale, out_bytes: int = 4):
     """(bound_ms, bound_by): bytes are feat and rois read once and the
     output (``out_bytes`` per element) written once; operations one max per
     window cell per channel."""
-    from wssdl_bus_tpu_torch.ops.roi_pool import _bin_masks, quantize_rois
-
     b, h, w, c = feat.shape
     p = rois.shape[1]
-    rsw, rsh, roi_w, roi_h = quantize_rois(rois.reshape(-1, 4).cpu(), scale)
-    hm, _ = _bin_masks(rsh, roi_h, 7, h, "gpu")
-    wm, _ = _bin_masks(rsw, roi_w, 7, w, "gpu")
-    cells = int((hm.sum(-1)[:, :, None] * wm.sum(-1)[:, None, :]).sum())
-    ops = cells * c
+    ops = window_cells(rois, h, w, scale) * c
     nbytes = feat.numel() * 4 + rois.numel() * 4 + b * p * 49 * c * out_bytes
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = ops / F32_OPS_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
+
+
+def roi_pool_traffic(feat, rois, scale) -> dict:
+    """What the pool forward reads through L2 for these inputs: the window
+    cells (summed over every ROI's bins), the bytes the direct path (the
+    first design: each bin's window read on its own) reads for them, and
+    the bytes the shared-memory path stages (one image's channel slice per
+    block), on the wrapper's plan."""
+    from wssdl_bus_tpu_torch.ops.roi_pool_cuda import (forward_plan,
+                                                       staged_tile_bytes)
+
+    b, h, w, c = feat.shape
+    p = rois.shape[1]
+    cells = window_cells(rois, h, w, scale)
+    cs, rblk = forward_plan(b, h, w, c, p)
+    staged = (b * -(-p // rblk) * -(-c // cs) * staged_tile_bytes(h, w, cs)
+              if cs else None)
+    return {"window_cells": cells, "cells_per_roi": cells / (b * p),
+            "direct_read_mb": cells * c * 4 / 1e6,
+            "staged_mb": staged / 1e6 if staged else None,
+            "output_mb": b * p * 49 * c * 4 / 1e6, "plan": [cs, rblk]}
+
+
+def pool_forward_stats(feat, rois, scale, dtype, tag: str,
+                       plans=()) -> dict:
+    """CUDA-event times of the pool forward on (feat, rois) in ``dtype``:
+    the wrapper's own path, the plain version and, for comparison in the
+    same call, each (cs, rblk) of ``plans`` ((0, 0): the direct path)
+    through the same launcher; the bound, its fraction and the traffic."""
+    import torch
+
+    from wssdl_bus_tpu_torch.ops.roi_pool_cuda import (_launch_forward,
+                                                       roi_pool_fc,
+                                                       roi_pool_fc_plain)
+
+    def run():
+        return roi_pool_fc(feat, rois, 7, 7, scale, out_dtype=dtype)
+
+    ms = cuda_ms(run, 20)
+    # the kernel alone: a small launch's CUDA-event time is the wrapper's
+    device_ms, recorded = launch_device_ms(
+        run, ("roi_pool_fwd_smem", "roi_pool_fwd_direct"))
+    plain_ms = cuda_ms(lambda: roi_pool_fc_plain(feat, rois, 7, 7, scale,
+                                                 out_dtype=dtype), 2,
+                       warmup=1)
+    bound_ms, by = roi_pool_bound(feat, rois, scale,
+                                  out_bytes=torch.finfo(dtype).bits // 8)
+    traffic = roi_pool_traffic(feat, rois, scale)
+    plan_ms = {f"{cs}x{rblk}": cuda_ms(lambda: _launch_forward(
+        feat, rois, 7, 7, scale, "gpu", dtype, (cs, rblk)), 20)
+        for cs, rblk in plans}
+    name = "bf16" if dtype == torch.bfloat16 else "f32"
+    others = "".join(f", plan {k} {v:.4f} ms" for k, v in plan_ms.items())
+    staged = traffic["staged_mb"]
+    dev = "not recorded" if device_ms is None else \
+        f"{device_ms:.4f} ms a launch over the {recorded} of 5 it recorded " \
+        f"({bound_ms / device_ms:.3f} of the bound)"
+    print(f"[pool] {tag} {name} feat {tuple(feat.shape)} rois "
+          f"{tuple(rois.shape)}: kernel {ms:.4f} ms on plan "
+          f"{traffic['plan']} ({bound_ms / ms:.3f} of the bound {bound_ms:.4f}"
+          f" ms by {by}), device time by the profiler {dev}, plain "
+          f"{plain_ms:.3f} ms{others}; window cells "
+          f"{traffic['window_cells']} ({traffic['cells_per_roi']:.1f} a "
+          f"ROI): the direct path reads {traffic['direct_read_mb']:.1f} MB, "
+          f"the shared-memory path stages "
+          f"{'-' if staged is None else f'{staged:.1f}'} MB; output "
+          f"{traffic['output_mb'] * (2 if name == 'bf16' else 4) / 4:.1f} "
+          "MB", flush=True)
+    return {"ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": by,
+            "bound_fraction": bound_ms / ms,
+            "plan_ms": plan_ms, "shape": [list(feat.shape), list(rois.shape)],
+            **traffic}
+
+
+def check_pool_nan(feat, rois, scale, tag: str) -> int:
+    """The NaN case: NaNs planted in a copy of ``feat`` (a diverged step);
+    the forward kernel against its plain version in f32 and bf16: the same
+    NaN positions, every other value equal.  -> NaN outputs (f32)."""
+    import torch
+
+    from wssdl_bus_tpu_torch.ops.roi_pool_cuda import (roi_pool_fc,
+                                                       roi_pool_fc_plain)
+
+    f = feat.clone()
+    gen = torch.Generator(device=f.device).manual_seed(3)
+    at = tuple(torch.randint(0, n, (64,), generator=gen, device=f.device)
+               for n in f.shape)
+    f[at] = float("nan")
+    n_nan = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        got = roi_pool_fc(f, rois, 7, 7, scale, out_dtype=dtype)
+        want = roi_pool_fc_plain(f, rois, 7, 7, scale, out_dtype=dtype)
+        nan = want.isnan()
+        _check(bool(nan.any()) and torch.equal(got.isnan(), nan)
+               and torch.equal(got[~nan], want[~nan]),
+               f"ROI pool NaN case ({tag}, {dtype}): kernel != plain")
+        n_nan = n_nan or int(nan.sum())
+    print(f"[pool] {tag}: 64 NaNs planted in the map: kernel == plain in f32"
+          f" and bf16 ({n_nan} NaN outputs, the same positions; every other"
+          " value equal)", flush=True)
+    return n_nan
 
 
 def phase_split(fn, phases, reps: int = 5) -> dict:
@@ -210,6 +324,26 @@ def phase_split(fn, phases, reps: int = 5) -> dict:
                 split[phase] = split.get(phase, 0.0) \
                     + getattr(e, "device_time_total", 0) / reps / 1e3
     return split
+
+
+def launch_device_ms(fn, names, reps: int = 5):
+    """(device ms per launch, launches recorded) of the kernels whose names
+    hold one of ``names``, from torch.profiler over ``reps`` calls of
+    ``fn``: their device time over the launches the profiler recorded
+    (it may record fewer than were made); (None, 0) if none."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = count = 0
+    for e in prof.key_averages():
+        if any(f"{n}_kernel" in e.key for n in names):
+            total += getattr(e, "device_time_total", 0)
+            count += e.count
+    return (total / count / 1e3 if count else None), count
 
 
 def split_text(split: dict) -> str:
@@ -328,23 +462,73 @@ def check_kernels(eng, images, net):
                       float((got4.reshape(want.shape) - want).abs().max()))
             _check(err == 0.0, f"ROI pool ({flavor}) max |diff| {err}")
             roi_err = max(roi_err, err)
+            got = roi_pool_fc(feat, rois, 7, 7, scale, flavor, torch.bfloat16)
+            want = roi_pool_fc_plain(feat, rois, 7, 7, scale, flavor,
+                                     torch.bfloat16)
+            _check(torch.equal(got, want),
+                   f"ROI pool bf16 ({flavor}): kernel != plain")
         print(f"[kernels] roi_pool_fc == plain roi_pool on {tuple(got.shape)}"
-              f" (flat and 5-D views, both flavors): max |diff| {roi_err}",
-              flush=True)
-        roi_ms = cuda_ms(lambda: roi_pool_fc(feat, rois, 7, 7, scale), 20)
-        roi_plain_ms = cuda_ms(
-            lambda: roi_pool_fc_plain(feat, rois, 7, 7, scale), 3, warmup=1)
-        roi_bound_ms, roi_bound_by = roi_pool_bound(feat, rois, scale)
-    print(f"[kernels] roi_pool_fc {roi_ms:.4f} ms (plain {roi_plain_ms:.3f}"
-          f" ms, bound {roi_bound_ms:.4f} ms by {roi_bound_by}); library: "
-          "none (PyTorch has no NMS or ROI-pool op; torchvision is not used)",
-          flush=True)
+              f" (flat and 5-D views, both flavors; the bf16 store too): max "
+              f"|diff| {roi_err}", flush=True)
+        check_pool_nan(feat, rois, scale, "serve")
+        # the first design (the direct path), twice the ROI blocks and a
+        # narrower slice beside the wrapper's plan, in the same call
+        plans = ((0, 0), (16, 150), (8, 300))
+        f32 = pool_forward_stats(feat, rois, scale, torch.float32, "serve",
+                                 plans)
+        bf16 = pool_forward_stats(feat, rois, scale, torch.bfloat16, "serve",
+                                  plans[:1])
+    print("[kernels] ROI pool library: none (PyTorch has no NMS or ROI-pool "
+          "op; torchvision is not used)", flush=True)
     return {
         "nms_keep": dict(nms_stats, per_shape={"serve": nms_stats}),
-        "roi_pool_fc": {"max_abs_err": roi_err, "ms": roi_ms,
-                        "plain_ms": roi_plain_ms, "bound_ms": roi_bound_ms,
-                        "bound_by": roi_bound_by},
+        "roi_pool_fc": dict(f32, max_abs_err=roi_err, per_shape={
+            "serve": f32}),
+        "roi_pool_fc_bf16_serve": bf16,
     }
+
+
+def check_direct_path(seed: int = 5) -> dict:
+    """The forward's direct path once, at a map too large for the shared-
+    memory path: the 125 x 125 x 512 map of a 2000 x 2000-pixel image
+    (random, post-ReLU) and 300 random ROIs: parity in f32 and bf16, both
+    flavors, the NaN case, its own counter, times."""
+    import torch
+
+    from wssdl_bus_tpu_torch.ops.roi_pool_cuda import (forward_plan,
+                                                       roi_pool_fc,
+                                                       roi_pool_fc_plain)
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    feat = torch.relu(torch.randn((1, 125, 125, 512), generator=gen,
+                                  device="cuda"))
+    xy = torch.rand((1, 300, 2), generator=gen, device="cuda") * 1900
+    wh = 16 + torch.rand((1, 300, 2), generator=gen, device="cuda") * 700
+    rois = torch.cat([xy, (xy + wh).clamp(max=1999)], -1).contiguous()
+    scale = 1.0 / 16
+    _check(forward_plan(1, 125, 125, 512, 300) == (0, 0),
+           "the 125 x 125 map should take the direct path")
+    before = dict(roi_pool_fc.paths)
+    with torch.no_grad():
+        got = roi_pool_fc(feat, rois, 7, 7, scale)
+        torch.cuda.synchronize()
+        _check(roi_pool_fc.paths == {"smem": before["smem"],
+                                     "direct": before["direct"] + 1},
+               f"direct path: counters {before} -> {roi_pool_fc.paths}")
+        _check(torch.equal(got, roi_pool_fc_plain(feat, rois, 7, 7, scale)),
+               "direct path: kernel != plain")
+        for flavor in ("gpu", "cpu"):
+            for dtype in (torch.float32, torch.bfloat16):
+                _check(torch.equal(
+                    roi_pool_fc(feat, rois, 7, 7, scale, flavor, dtype),
+                    roi_pool_fc_plain(feat, rois, 7, 7, scale, flavor,
+                                      dtype)),
+                    f"direct path ({flavor}, {dtype}): kernel != plain")
+        print("[pool] direct path: feat (1, 125, 125, 512), rois (1, 300, 4)"
+              ": kernel == plain (both flavors, f32 and bf16), counted on "
+              "roi_pool_fc.paths['direct']", flush=True)
+        check_pool_nan(feat, rois, scale, "direct")
+        return pool_forward_stats(feat, rois, scale, torch.float32, "direct")
 
 
 def serve(eng, requests, net, batch):
@@ -627,9 +811,49 @@ def check_backward_kernel(eng, groups, dtype):
             "dense_weak_ms": tdense, "dense_weak_split_ms": split}
 
 
-def check_bf16_forward(eng, groups):
-    """Phase 8a: the bf16 forward kernel against its plain version at the
-    combined step's two launches; times and bounds summed over the two."""
+def backward_nan_routing(eng, groups) -> dict:
+    """For information (the backward is not changed): the backward kernel
+    against ``roi_pool_grad`` when windows hold a NaN, on the supervised
+    group with 64 NaNs planted in its map and a dense cotangent.  The plain
+    version's argmax takes a NaN as the maximum; the kernel's ">" compares
+    never select one.  -> whether they agree, and on how many elements of
+    dfeat they differ."""
+    import torch
+
+    from wssdl_bus_tpu_torch.ops.roi_pool import roi_pool_grad
+    from wssdl_bus_tpu_torch.ops.roi_pool_cuda import roi_pool_fc_backward
+
+    scale = 1.0 / eng.cfg.FEAT_STRIDE
+    f, rois = groups["sup"]
+    f = f.clone()
+    gen = torch.Generator(device=f.device).manual_seed(4)
+    f[tuple(torch.randint(0, n, (64,), generator=gen, device=f.device)
+            for n in f.shape)] = float("nan")
+    g = torch.randn((1, rois.shape[1], 49 * f.shape[-1]), generator=gen,
+                    device=f.device)
+    got = roi_pool_fc_backward(f, rois, g, 7, 7, scale)
+    want = roi_pool_grad(f, rois, g, 7, 7, scale)
+    torch.cuda.synchronize()
+    same = (got == want) | (got.isnan() & want.isnan())
+    differ = int((~same).sum())
+    print(f"[backward] NaN in windows (information): kernel vs plain "
+          f"roi_pool_grad on the supervised group: "
+          f"{'agree' if differ == 0 else f'differ in {differ} of'} "
+          f"{got.numel()} dfeat elements ({int(want.isnan().sum())} NaN in "
+          f"the plain dfeat, {int(got.isnan().sum())} in the kernel's)",
+          flush=True)
+    return {"agree": differ == 0, "differing": differ,
+            "nan_plain": int(want.isnan().sum()),
+            "nan_kernel": int(got.isnan().sum())}
+
+
+def check_train_forward(eng, groups) -> dict:
+    """Phase 8a: the pool forward at the combined step's two launches (the
+    supervised group [1, 128] and the weak group [2, 2000] of ROIs on a
+    [38, 56, 512] map): the bf16 store against its plain version and the
+    rounded f32 forward, the f32 forward against its plain version, and the
+    NaN case on the weak group; times of both dtypes on the same ROIs.
+    -> {dtype name: stats summed over the two launches, per group}."""
     import torch
 
     from wssdl_bus_tpu_torch.ops.roi_pool_cuda import (roi_pool_fc,
@@ -637,30 +861,44 @@ def check_bf16_forward(eng, groups):
 
     scale = 1.0 / eng.cfg.FEAT_STRIDE
     bf16 = torch.bfloat16
-    err = ms = plain_ms = bound_ms = 0.0
+    res = {}
     with torch.no_grad():
         for k, (f, rois) in groups.items():
             got = roi_pool_fc(f, rois, 7, 7, scale, out_dtype=bf16)
             want = roi_pool_fc_plain(f, rois, 7, 7, scale, out_dtype=bf16)
             f32 = roi_pool_fc(f, rois, 7, 7, scale)
+            f32_plain = roi_pool_fc_plain(f, rois, 7, 7, scale)
             torch.cuda.synchronize()
             _check(got.dtype == bf16 and torch.equal(got, want),
                    f"bf16 forward ({k}): kernel != plain")
             _check(torch.equal(got, f32.to(bf16)),
                    f"bf16 forward ({k}): != the rounded f32 forward")
-            err = max(err, float((got.float() - want.float()).abs().max()))
-            t = cuda_ms(lambda: roi_pool_fc(f, rois, 7, 7, scale,
-                                            out_dtype=bf16), 20)
-            tp = cuda_ms(lambda: roi_pool_fc_plain(f, rois, 7, 7, scale,
-                                                   out_dtype=bf16), 2,
-                         warmup=1)
-            bnd, by = roi_pool_bound(f, rois, scale, out_bytes=2)
-            ms, plain_ms, bound_ms = ms + t, plain_ms + tp, bound_ms + bnd
+            _check(torch.equal(f32, f32_plain),
+                   f"f32 forward ({k}): kernel != plain")
             print(f"[pool-bf16] forward {k:4s} {tuple(got.shape)}: kernel =="
-                  f" plain == bf16(f32 forward); kernel {t:.4f} ms, plain "
-                  f"{tp:.3f} ms, bound {bnd:.4f} ms by {by}", flush=True)
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": by}
+                  f" plain == bf16(f32 forward); f32 kernel == plain",
+                  flush=True)
+            # beside the wrapper's plan: the direct path, and two and four
+            # times the ROI blocks
+            p = rois.shape[1]
+            plans = ((0, 0), (16, -(-p // 8)), (16, -(-p // 16))) \
+                if k == "sup" else ((0, 0), (16, 500), (16, 285))
+            for dtype in (torch.float32, bf16):
+                name = "bf16" if dtype == bf16 else "f32"
+                res.setdefault(name, {})[k] = pool_forward_stats(
+                    f, rois, scale, dtype, f"train {k}",
+                    plans if dtype == torch.float32 else plans[:1])
+        check_pool_nan(*groups["weak"], scale, "train weak")
+    out = {}
+    for name, per in res.items():
+        out[name] = {key: sum(v[key] for v in per.values())
+                     for key in ("ms", "plain_ms", "bound_ms")}
+        dev = [v["device_ms"] for v in per.values()]
+        out[name]["device_ms"] = None if None in dev else sum(dev)
+        out[name].update(max_abs_err=0.0, per_group=per, bound_by="bytes" if
+                         all(v["bound_by"] == "bytes" for v in per.values())
+                         else "operations")
+    return out
 
 
 def run_bf16_pool_path(eng, groups):
@@ -700,6 +938,7 @@ def run_bf16_pool_path(eng, groups):
                f"bf16 pool path ({k}): dfeat != the plain autograd's")
     check_counts(counts, {"roi_pool_fc_bf16": 2,
                           "roi_pool_fc_backward_bf16": 2}, "bf16 pool path")
+    check_pool_paths(counts, "bf16_pool")
     print(f"[pool-bf16] roi_pool_fc(out_dtype=bf16) under autograd on the "
           f"two groups: launches {counts}; f32 dfeat == the plain "
           f"version's autograd", flush=True)
@@ -856,10 +1095,28 @@ def kernel_wrappers() -> dict:
 def reset_counts():
     for f in kernel_wrappers().values():
         f.launches = 0
+        if hasattr(f, "paths"):
+            f.paths = dict.fromkeys(f.paths, 0)
 
 
 def read_counts() -> dict:
     return {n: f.launches for n, f in kernel_wrappers().items()}
+
+
+POOL_PATHS = {}     # main path -> the pool forwards' launches by path
+
+
+def check_pool_paths(counts: dict, what: str) -> dict:
+    """Every pool-forward launch of the run (``counts``, read just before)
+    took the shared-memory path; recorded in POOL_PATHS[what]."""
+    paths = {n: dict(f.paths) for n, f in kernel_wrappers().items()
+             if hasattr(f, "paths")}
+    for name, by in paths.items():
+        _check(by == {"smem": counts[name], "direct": 0},
+               f"{what}: {name} launches by path {by}, expected all "
+               f"{counts[name]} on the shared-memory path")
+    POOL_PATHS[what] = paths
+    return paths
 
 
 def check_counts(counts: dict, want: dict, what: str):
@@ -1026,6 +1283,7 @@ def run_stem_path(name, eng, requests, net, teng, joint, weak, smi) -> dict:
         n = BATCH_1_REQUESTS + 1
         check_counts(serve_counts, {"nms_keep": n, "roi_pool_fc": n,
                                     name: n}, f"{var}=1 serving")
+        check_pool_paths(serve_counts, f"serve_{var}")
         for scores, boxes, _ in served:
             _check(np.isfinite(scores).all() and np.isfinite(boxes).all()
                    and boxes.shape == (scores.shape[0], 12),
@@ -1048,6 +1306,7 @@ def run_stem_path(name, eng, requests, net, teng, joint, weak, smi) -> dict:
             "nms_keep": TRAIN_STEPS + 1, "roi_pool_fc": 2 * TRAIN_STEPS + 1,
             "roi_pool_fc_backward": 2 * TRAIN_STEPS + 1,
             name: TRAIN_STEPS + 1}, f"{var}=1 training")
+        check_pool_paths(train_counts, f"train_{var}")
         peak = torch.cuda.max_memory_allocated()
         after = model.state_dict()
         frozen = [k for k in after if ".conv1_" in k or ".conv2_" in k]
@@ -1208,8 +1467,10 @@ def main() -> int:
           f"{len(requests)} requests of sizes "
           f"{sorted({r.shape for r in requests})}", flush=True)
 
-    # phase 3: kernels against their plain versions
+    # phase 3: kernels against their plain versions, and the pool
+    # forward's direct path at a map too large for its shared-memory path
     stats = check_kernels(eng, requests, net)
+    stats["roi_pool_fc"]["per_shape"]["direct"] = check_direct_path()
 
     # phase 4a: the served path through the kernels, counters around it
     reset_counts()
@@ -1223,6 +1484,8 @@ def main() -> int:
           f"batch; none for the opt-in stem kernels)", flush=True)
     check_counts(serve_launches, {"nms_keep": want, "roi_pool_fc": want},
                  "serving")
+    print(f"[serve] pool forward launches by path: "
+          f"{check_pool_paths(serve_launches, 'serve')}", flush=True)
     for scores, boxes, _ in served_1 + served_8:
         _check(scores.ndim == 2 and scores.shape[1] == 3
                and boxes.shape == (scores.shape[0], 12),
@@ -1293,6 +1556,8 @@ def main() -> int:
           f"backward twice per combined step and once per MIL step; none "
           f"for the stem kernels)", flush=True)
     check_counts(train_launches, expect, "training")
+    print(f"[train] pool forward launches by path: "
+          f"{check_pool_paths(train_launches, 'train')}", flush=True)
     peak = torch.cuda.max_memory_allocated()
     after = tmodel.state_dict()
     frozen = [k for k in after if ".conv1_" in k or ".conv2_" in k]
@@ -1322,8 +1587,15 @@ def main() -> int:
                                               dyadic=False)}
     del serve_x, train_x
 
-    # phase 8: the bf16 output option of the ROI pool at the training shapes
-    stats["roi_pool_fc_bf16"] = check_bf16_forward(teng, groups)
+    # phase 8: the bf16 output option of the ROI pool at the training
+    # shapes, and the f32 forward on the same ROIs
+    train_fwd = check_train_forward(teng, groups)
+    stats["roi_pool_fc_bf16"] = train_fwd["bf16"]
+    stats["roi_pool_fc"]["per_shape"]["train"] = train_fwd["f32"]
+    stats["roi_pool_fc_bf16"]["per_shape"] = {
+        "serve": stats.pop("roi_pool_fc_bf16_serve"),
+        "train": train_fwd["bf16"]["per_group"]}
+    stats["roi_pool_fc_backward_nan"] = backward_nan_routing(teng, groups)
     stats["roi_pool_fc_backward_bf16"] = check_backward_kernel(
         teng, groups, torch.bfloat16)
     bf16_launches = run_bf16_pool_path(teng, groups)
@@ -1397,7 +1669,10 @@ def main() -> int:
              source="wssdl_bus_tpu_torch/csrc/roi_pool.cu",
              replaces="wssdl_bus_tpu/ops/roi_pool_pallas.py:373",
              library_ms=None, **launches("roi_pool_fc"),
-             **stats["roi_pool_fc"]),
+             **kernel_stats(stats["roi_pool_fc"]),
+             launches_by_forward_path={
+                 p: c["roi_pool_fc"] for p, c in POOL_PATHS.items()},
+             per_shape=stats["roi_pool_fc"]["per_shape"]),
         dict(name="roi_pool_fc_backward", route="cuda",
              source="wssdl_bus_tpu_torch/csrc/roi_pool.cu",
              replaces="wssdl_bus_tpu/ops/roi_pool_pallas.py:140",
@@ -1407,7 +1682,10 @@ def main() -> int:
              source="wssdl_bus_tpu_torch/csrc/roi_pool.cu",
              replaces="wssdl_bus_tpu/ops/roi_pool_pallas.py:373",
              library_ms=None, **launches("roi_pool_fc_bf16"),
-             **kernel_stats(stats["roi_pool_fc_bf16"])),
+             **kernel_stats(stats["roi_pool_fc_bf16"]),
+             launches_by_forward_path={
+                 p: c["roi_pool_fc_bf16"] for p, c in POOL_PATHS.items()},
+             per_shape=stats["roi_pool_fc_bf16"]["per_shape"]),
         dict(name="roi_pool_fc_backward_bf16", route="cuda",
              source="wssdl_bus_tpu_torch/csrc/roi_pool.cu",
              replaces="wssdl_bus_tpu/ops/roi_pool_pallas.py:426",
@@ -1430,6 +1708,8 @@ def main() -> int:
                           k: stats[k]["per_launch"] for k in (
                               "roi_pool_fc_backward",
                               "roi_pool_fc_backward_bf16")},
+                      "backward_nan_routing":
+                          stats["roi_pool_fc_backward_nan"],
                       "backward_dense_weak_ms": {
                           k: stats[k]["dense_weak_ms"] for k in (
                               "roi_pool_fc_backward",

@@ -19,7 +19,7 @@ from wssdl_bus_tpu_torch.ops.conv2_pool_cuda import vgg_conv2_pool
 from wssdl_bus_tpu_torch.ops.nms import nms_mask
 from wssdl_bus_tpu_torch.ops.nms_cuda import nms_keep
 from wssdl_bus_tpu_torch.ops.roi_pool import roi_pool_grad, roi_pool_grad_bf16
-from wssdl_bus_tpu_torch.ops.roi_pool_cuda import (roi_pool_fc,
+from wssdl_bus_tpu_torch.ops.roi_pool_cuda import (forward_plan, roi_pool_fc,
                                                    roi_pool_fc_backward,
                                                    roi_pool_fc_backward_bf16,
                                                    roi_pool_fc_bf16,
@@ -140,25 +140,70 @@ def _rois(rng, b, p, h, w):
     return np.stack([x1, y1, x2, y2], -1).astype(np.float32)
 
 
+def _path(b, p, h, w, c):
+    """The forward path the wrapper picks for these shapes."""
+    return "smem" if forward_plan(b, h, w, c, p)[0] else "direct"
+
+
+def _launch_counted(wrapper, path, fn):
+    """fn()'s result, checking that it launched ``wrapper``'s kernel once,
+    on ``path``."""
+    before, paths = wrapper.launches, dict(wrapper.paths)
+    out = fn()
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    paths[path] += 1
+    assert wrapper.paths == paths
+    return out
+
+
 @pytest.mark.parametrize("b,p,h,w,c", [
     (8, 300, 38, 51, 512),   # the served path at the 608x816 canvas
     (1, 1, 38, 51, 512),     # P = 1
     (2, 37, 7, 9, 12),       # small map, C not a multiple of 32
+    (1, 128, 38, 56, 512),   # the training groups: supervised
+    (2, 2000, 38, 56, 512),  # and weak
+    (2, 300, 38, 51, 20),    # C % 16 != 0: a 4-channel tail slice
+    (1, 300, 38, 51, 516),
+    (8, 300, 63, 63, 512),   # 8-channel slices
+    (1, 40, 5, 300, 8),      # wider than one TMA box
+    (1, 40, 300, 5, 8),      # taller than one TMA box
+    (1, 50, 128, 128, 8),    # the direct path
 ])
 @pytest.mark.parametrize("flavor", ["gpu", "cpu"])
 def test_roi_pool_kernel_matches_plain(cuda, b, p, h, w, c, flavor):
     rng = np.random.RandomState(p)
     feat = torch.from_numpy(rng.randn(b, h, w, c).astype(np.float32)).to(cuda)
     rois = torch.from_numpy(_rois(rng, b, p, h, w)).to(cuda)
-    before = roi_pool_fc.launches
-    got = roi_pool_fc(feat, rois, flavor=flavor)
-    torch.cuda.synchronize()
-    assert roi_pool_fc.launches == before + 1
+    got = _launch_counted(roi_pool_fc, _path(b, p, h, w, c),
+                          lambda: roi_pool_fc(feat, rois, flavor=flavor))
     want = roi_pool_fc_plain(feat, rois, flavor=flavor)
     assert torch.equal(got, want)
     grouped = roi_pool_grouped(feat, rois, flavor=flavor)
     assert grouped.shape == (b, p, 7, 7, c)
     assert torch.equal(grouped.reshape(got.shape), want)
+
+
+@pytest.mark.parametrize("h,w,c", [(38, 51, 512), (38, 51, 20),
+                                   (128, 128, 8)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_roi_pool_kernel_propagates_nan(cuda, h, w, c, dtype):
+    """NaNs in the map (a diverged step): every bin whose window holds one
+    is NaN, as in the plain version, on both paths; the rest is equal."""
+    rng = np.random.RandomState(c)
+    feat = rng.randn(2, h, w, c).astype(np.float32)
+    ys, xs = rng.randint(0, h, 30), rng.randint(0, w, 30)
+    feat[rng.randint(0, 2, 30), ys, xs, rng.randint(0, c, 30)] = np.nan
+    feat = torch.from_numpy(feat).to(cuda)
+    rois = torch.from_numpy(_rois(rng, 2, 200, h, w)).to(cuda)
+    wrapper = roi_pool_fc_bf16 if dtype == torch.bfloat16 else roi_pool_fc
+    got = _launch_counted(wrapper, _path(2, 200, h, w, c),
+                          lambda: roi_pool_fc(feat, rois, out_dtype=dtype))
+    want = roi_pool_fc_plain(feat, rois, out_dtype=dtype)
+    nan = want.isnan()
+    assert nan.any() and torch.equal(got.isnan(), nan)
+    assert torch.equal(got[~nan], want[~nan])
 
 
 def _cotangent(rng, b, p, d, pattern):
@@ -292,15 +337,20 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
 @pytest.mark.parametrize("b,p,h,w,c", [
     (8, 300, 38, 51, 512),   # the served path's shapes
     (2, 37, 7, 9, 12),
+    (1, 128, 38, 56, 512),   # the training groups
+    (2, 2000, 38, 56, 512),
+    (2, 300, 38, 51, 20),    # a 4-channel tail slice
+    (8, 300, 63, 63, 512),   # 8-channel slices
+    (1, 40, 5, 300, 8),      # several TMA boxes
+    (1, 50, 128, 128, 8),    # the direct path
 ])
 def test_roi_pool_bf16_forward_matches_plain(cuda, b, p, h, w, c):
     rng = np.random.RandomState(p)
     feat = torch.from_numpy(rng.randn(b, h, w, c).astype(np.float32)).to(cuda)
     rois = torch.from_numpy(_rois(rng, b, p, h, w)).to(cuda)
-    before = roi_pool_fc_bf16.launches
-    got = roi_pool_fc(feat, rois, out_dtype=torch.bfloat16)
-    torch.cuda.synchronize()
-    assert roi_pool_fc_bf16.launches == before + 1
+    got = _launch_counted(
+        roi_pool_fc_bf16, _path(b, p, h, w, c),
+        lambda: roi_pool_fc(feat, rois, out_dtype=torch.bfloat16))
     assert got.dtype == torch.bfloat16
     want = roi_pool_fc_plain(feat, rois, out_dtype=torch.bfloat16)
     assert torch.equal(got, want)

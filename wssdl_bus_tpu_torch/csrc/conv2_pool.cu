@@ -21,8 +21,7 @@
 // output touch device memory.  Numerics: vgg_stem.cuh (f32 reassociation
 // of exact bf16 products against ops/conv2_pool.py:vgg_conv2_pool_plain).
 
-#include <cuda.h>
-
+#include "tma.cuh"
 #include "vgg_stem.cuh"
 
 namespace {
@@ -31,18 +30,6 @@ using namespace vgg_stem;
 
 constexpr int kThreads = kConsumerThreads + 32;   // + the producer warp
 constexpr size_t kSmemBytes = kSmemSlack + kStemScratch;
-
-__device__ __forceinline__ void tma_load_halo(uint32_t dst,
-                                              const CUtensorMap* map,
-                                              uint32_t bar, int x, int y,
-                                              int b) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(0), "r"(x), "r"(y), "r"(b),
-      "r"(bar)
-      : "memory");
-}
 
 __global__ void __launch_bounds__(kThreads, 1)
     stem_tail_kernel(const __grid_constant__ CUtensorMap a1_map,
@@ -64,38 +51,12 @@ __global__ void __launch_bounds__(kThreads, 1)
       producer_acquire(smem, it);
       const uint32_t full = full_bar(smem, it & 1);
       mbar_arrive_expect_tx(full, kHaloBytes);
-      tma_load_halo(smem_u32(smem + kBufOff + (it & 1) * kBufBytes), &a1_map,
-                    full, tc.x0 - 1, tc.y0 - 1, tc.b);
+      tma::load_4d(smem_u32(smem + kBufOff + (it & 1) * kBufBytes),
+                   &a1_map, full, 0, tc.x0 - 1, tc.y0 - 1, tc.b);
     }
   } else {
     consumer_loop(smem, b2, ntx, nty, ntiles, h / 2, w / 2, out);
   }
-}
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// libcuda's cuTensorMapEncodeTiled, found through the runtime (this
-// library does not link libcuda); null if it is missing.
-EncodeTiled encode_tiled() {
-  void* fn = nullptr;
-  cudaDriverEntryPointQueryResult res;
-#if CUDART_VERSION >= 12050
-  if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &fn, 12000,
-                                       cudaEnableDefault, &res) != cudaSuccess)
-    return nullptr;
-#else
-  if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn,
-                              cudaEnableDefault, &res) != cudaSuccess)
-    return nullptr;
-#endif
-  return res == cudaDriverEntryPointSuccess
-             ? reinterpret_cast<EncodeTiled>(fn)
-             : nullptr;
 }
 
 }  // namespace
@@ -111,7 +72,7 @@ int wssdl_vgg_conv2_pool(const void* a1, const void* wpk, const float* b2,
                          cudaStream_t stream) {
   if (batch <= 0 || h <= 0 || w <= 0) return 0;
   if (h % 2 || w % 2) return (int)cudaErrorInvalidValue;
-  static EncodeTiled encode = encode_tiled();
+  static tma::EncodeTiled encode = tma::encode_tiled();
   if (encode == nullptr) return (int)cudaErrorNotSupported;
   // dims innermost first: channel, column, row, image; the box is one
   // image's 18 x 18 halo tile, all 64 channels (128 bytes: the swizzle row)

@@ -16,22 +16,44 @@
 //       hi = ((k + 1) * size + pooled - 1) / pooled + start   ("gpu", 0)
 //       hi = ((k + 1) * size) / pooled + start                ("cpu", 1)
 //     both clipped to [0, limit];
-//   * an empty bin writes 0.
+//   * an empty bin writes +0;
+//   * a NaN in a bin's window makes the bin NaN (max.NaN), as torch.amax
+//     and jnp.max do.
 // Max is exact, so the result equals the plain version bit for bit.
 //
 // What bounds it: the output.  At P = 300 ROIs, 7 x 7 bins and C = 512 an
 // image writes 300 * 49 * 512 * 4 B = 30.1 MB and reads a 38 x 51 x 512 f32
-// map (4 MB) that stays in L2, so the kernel is bound by device-memory
-// bandwidth on its writes.
+// map (4 MB), so the kernel is bound by device-memory bandwidth on its
+// writes.  Bins overlap (the "gpu" edges share a row or column between
+// neighbours) and ROIs overlap each other: summed over its 49 bins a served
+// ROI's windows cover ~170 cells, not the ~51 of its own area, so a design
+// that reads every window from global memory moves ~3.5x the output's bytes
+// through L2 (the first design: one block per (ROI, bin)).
 //
-// Design: the Pallas kernel pools separably (rows, then columns) because
-// Mosaic only slices unaligned windows along untiled axes.  On the card the
-// bin window is just a loop: one block per (ROI, bin), threads over
-// channels.  With C % 4 == 0 each thread owns a float4 of channels, so a warp
-// reads 512 contiguous bytes of one feature cell and writes 512 contiguous
-// bytes of the output row: every access is a full 16-byte-per-thread,
-// coalesced transaction.  The ROI's quantisation and bin edges are a few
-// integer operations each block recomputes from the ROI row.
+// Design (the shared-memory path): grid (channel slice, ROI block, image).
+// A block stages feat[b, :, :, c0 : c0 + cs] into shared memory with TMA
+// (a 4-D tensor map over [B, H, W, C], one request per box of at most 256
+// rows and columns, all completing on one mbarrier), computes its ROIs'
+// quantised bin edges once into shared memory meanwhile, then one thread
+// per (ROI, bin, 4 channels) takes the max over the window from shared
+// memory and stores 16 bytes (8 for bf16).  The wrapper
+// (ops/roi_pool_cuda.py:forward_plan) picks cs = 16 channels (64-byte
+// cells: 124 KB at the served 38 x 51 map) where the slice fits the 227 KB
+// a block may use, else 8, then 4; a last slice past C is zero-filled by TMA
+// and never read.  Each window cell then leaves L2 once per (ROI block,
+// slice) instead of once per bin covering it.  With the window in shared
+// memory the loop over it, not the stores, is what is left: a block of 16
+// channels holds its SM alone, and each cell's load is a shared-memory
+// round trip with bank conflicts (two 64-byte cells a phase).  So a block
+// runs 1024 threads, its index math divides by constants only (7 x 7
+// bins, kVS vectors a slice), the window is walked four loads at a time,
+// and blocks are few: each stages its whole slice, so the ROIs are cut
+// into about one wave of blocks.
+//
+// Maps whose 4-channel slice does not fit (H * W above ~14,500 cells) take
+// the direct path: the first design, one block per (ROI, bin), threads over
+// channels, the window read from global memory.  The wrapper picks the
+// path by shape alone.
 //
 // ---------------------------------------------------------------------------
 // Backward: the VJP of the pool with respect to feat.  Replaces the TPU
@@ -81,9 +103,13 @@
 // The bf16 output option (roi_pool_fc(..., out_dtype=bfloat16)): instances
 // of the same kernels on other element types, no new design.
 //   * Forward: the output is bf16(max(feat)); rounding is monotone, so it
-//     commutes with max and the f32 forward rounds at the store (to
-//     nearest, ties to even, as torch's and XLA's casts).  Half the bytes
-//     written: 0.04 ms of its 0.08 ms bound at the served batch.
+//     commutes with max and both forward paths round at the store (to
+//     nearest, ties to even, as torch's and XLA's casts; a NaN stays NaN).
+//     On the shared-memory path a thread keeps its 4 channels (an 8-byte
+//     store; a 16-channel slice still writes whole 32-byte sectors):
+//     with 8 a thread, a shared-memory phase of a warp's loads touches
+//     twice the cells, and bank conflicts made the store slower.  Half
+//     the bytes written.
 //   * Backward: replaces wssdl_bus_tpu/ops/roi_pool_pallas.py:
 //     _fc_bwd_kernel (the VJP of the bf16 output, reached through
 //     _fc_vjp_bwd) and computes what it computes: the active-row pass and
@@ -102,6 +128,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "tma.cuh"
 
 namespace {
 
@@ -126,9 +154,16 @@ __device__ __forceinline__ void bin_edges(int k, int start, int size,
   *hi = min(max(h, 0), limit);
 }
 
+// NaN-propagating max (PTX max.NaN, sm_80 and later); fmaxf drops a NaN.
+__device__ __forceinline__ float max_nan(float a, float b) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
 __device__ __forceinline__ float4 max4(float4 a, float4 b) {
-  return make_float4(fmaxf(a.x, b.x), fmaxf(a.y, b.y), fmaxf(a.z, b.z),
-                     fmaxf(a.w, b.w));
+  return make_float4(max_nan(a.x, b.x), max_nan(a.y, b.y), max_nan(a.z, b.z),
+                     max_nan(a.w, b.w));
 }
 
 // Four channels in the output / cotangent element type: float4 (f32) or
@@ -171,12 +206,15 @@ __device__ __forceinline__ float4 route_value(float4 v) {
                      __bfloat162float(__float2bfloat16_rn(v.w)));
 }
 
+// The direct path: one block per (ROI, bin), threads over four-channel
+// vectors, the window read from global memory.
 template <typename OutVec>
-__global__ void roi_pool_fwd_kernel(const float4* __restrict__ feat,
-                                    const float* __restrict__ rois, int p,
-                                    int h, int w, int c4, int pooled_h,
-                                    int pooled_w, float spatial_scale,
-                                    int flavor, OutVec* __restrict__ out) {
+__global__ void roi_pool_fwd_direct_kernel(const float4* __restrict__ feat,
+                                           const float* __restrict__ rois,
+                                           int p, int h, int w, int c4,
+                                           int pooled_h, int pooled_w,
+                                           float spatial_scale, int flavor,
+                                           OutVec* __restrict__ out) {
   const int bp = blockIdx.x;   // b * p + roi
   const int bin = blockIdx.y;  // i * pooled_w + j
   const int b = bp / p;
@@ -209,6 +247,160 @@ __global__ void roi_pool_fwd_kernel(const float4* __restrict__ feat,
       }
     }
     from_float4(m, ob + c);
+  }
+}
+
+// ---- the forward's shared-memory path ---------------------------------
+constexpr int kFwdThreads = 1024;
+constexpr int kBoxMax = 256;     // a TMA box's largest dimension
+constexpr int kPooled = 7;       // bins a side, every caller's
+
+// How one image's channel slice is staged: TMA boxes of bh rows x bw
+// columns x cs channels, nby down and nbx across, each into its own
+// 128-byte aligned region of `region` bytes.  A map at most kBoxMax wide
+// is cut into near-equal bands of whole rows (one box when it is at most
+// kBoxMax tall); a wider one into a box per row, cut into near-equal
+// pieces.  Cells of a box past the map's edge arrive as zeros and are never
+// read.  ops/roi_pool_cuda.py:staged_tile_bytes mirrors this.
+struct FwdTile {
+  int bh, bw, nby, nbx, cell, region;
+};
+
+inline FwdTile fwd_tile(int h, int w, int cs) {
+  FwdTile t;
+  if (w <= kBoxMax) {
+    t.nbx = 1;
+    t.bw = w;
+    t.nby = (h + kBoxMax - 1) / kBoxMax;
+    t.bh = (h + t.nby - 1) / t.nby;
+  } else {
+    t.nby = h;
+    t.bh = 1;
+    t.nbx = (w + kBoxMax - 1) / kBoxMax;
+    t.bw = (w + t.nbx - 1) / t.nbx;
+  }
+  t.cell = cs * 4;
+  t.region = (t.bh * t.bw * t.cell + 127) / 128 * 128;
+  return t;
+}
+
+// Dynamic shared memory: up to 128 bytes to align the base, the staged
+// tile, the mbarrier (16 bytes), then each ROI's bin edges packed as
+// lo | hi << 16: rows [rblk][kPooled], then columns [rblk][kPooled].
+inline size_t fwd_smem_bytes(const FwdTile& t, int rblk) {
+  return 128 + (size_t)t.nby * t.nbx * t.region + 16 +
+         (size_t)rblk * 2 * kPooled * sizeof(unsigned);
+}
+
+// Byte offset of cell (y, x) in a tile of several boxes.
+__device__ __forceinline__ int cell_offset(const FwdTile& t, int y, int x) {
+  return ((y / t.bh) * t.nbx + x / t.bw) * t.region +
+         ((y % t.bh) * t.bw + x % t.bw) * t.cell;
+}
+
+// Four channels of the output: f32, or bf16 rounded to nearest, ties to
+// even (8 bytes).
+__device__ __forceinline__ void store_out(float* o, float4 m) {
+  *reinterpret_cast<float4*>(o) = m;
+}
+
+__device__ __forceinline__ void store_out(__nv_bfloat16* o, float4 m) {
+  from_float4(m, reinterpret_cast<uint2*>(o));
+}
+
+// Block (slice, ROI block, image): stages feat[b, :, :, c0 : c0 + cs]
+// (one TMA request per box, thread 0), computes its ROIs' bin edges
+// meanwhile, then walks (ROI, bin) pairs.  Thread t owns the four channels
+// v = t % kVS of the slice (kVS = cs / 4; lanes past C in the last slice
+// idle) and pairs t / kVS, t / kVS + kFwdThreads / kVS, ..., so kVS
+// neighbouring threads store one (ROI, bin)'s 64 (f32) or 32 (bf16)
+// contiguous bytes of a 16-channel slice, and every index is a constant
+// division.  The window is walked in 2 x 2 steps whose second row and
+// column are clamped to the window (max is idempotent: a cell read twice
+// changes nothing), four independent loads in flight a step.  kOneBox: the
+// tile is one box, cell (y, x) at (y * w + x) * cell.  Bins are kPooled x
+// kPooled; the wrapper sends other sizes to the direct path.
+template <typename OutT, int kVS, bool kOneBox>
+__global__ void __launch_bounds__(kFwdThreads)
+    roi_pool_fwd_smem_kernel(const __grid_constant__ CUtensorMap feat_map,
+                             const float* __restrict__ rois, int p, int h,
+                             int w, int c, int rblk, float spatial_scale,
+                             int flavor, FwdTile tile,
+                             OutT* __restrict__ out) {
+  constexpr int kNb = kPooled * kPooled;
+  constexpr int kCs = kVS * 4;
+  extern __shared__ unsigned char fwd_smem_raw[];
+  const uint32_t raw = tma::smem_u32(fwd_smem_raw);
+  unsigned char* tile_s = fwd_smem_raw + (((raw + 127u) & ~127u) - raw);
+  const int nbox = tile.nby * tile.nbx;
+  const int tile_bytes = nbox * tile.region;
+  const uint32_t bar = tma::smem_u32(tile_s + tile_bytes);
+  unsigned* hedge = reinterpret_cast<unsigned*>(tile_s + tile_bytes + 16);
+  unsigned* wedge = hedge + rblk * kPooled;
+
+  const int c0 = blockIdx.x * kCs;
+  const int r0 = blockIdx.y * rblk;
+  const int b = blockIdx.z;
+  const int nr = min(rblk, p - r0);
+
+  if (threadIdx.x == 0) {
+    tma::mbar_init(bar, 1);
+    tma::mbar_arrive_expect_tx(
+        bar, (uint32_t)(nbox * tile.bh * tile.bw * tile.cell));
+    for (int ky = 0; ky < tile.nby; ++ky)
+      for (int kx = 0; kx < tile.nbx; ++kx)
+        tma::load_4d(
+            tma::smem_u32(tile_s + (ky * tile.nbx + kx) * tile.region),
+            &feat_map, bar, c0, kx * tile.bw, ky * tile.bh, b);
+  }
+  for (int k = threadIdx.x; k < nr; k += kFwdThreads) {
+    const float* roi = rois + ((size_t)b * p + r0 + k) * 4;
+    const int rsw = quantize(roi[0], spatial_scale);
+    const int rsh = quantize(roi[1], spatial_scale);
+    const int roi_w = max(quantize(roi[2], spatial_scale) - rsw + 1, 1);
+    const int roi_h = max(quantize(roi[3], spatial_scale) - rsh + 1, 1);
+    int lo, hi;
+    for (int i = 0; i < kPooled; ++i) {
+      bin_edges(i, rsh, roi_h, kPooled, h, flavor, &lo, &hi);
+      hedge[k * kPooled + i] = (unsigned)lo | ((unsigned)hi << 16);
+      bin_edges(i, rsw, roi_w, kPooled, w, flavor, &lo, &hi);
+      wedge[k * kPooled + i] = (unsigned)lo | ((unsigned)hi << 16);
+    }
+  }
+  __syncthreads();            // the edges, and the barrier's init
+  tma::mbar_wait(bar, 0);     // the tile
+
+  const int v = threadIdx.x % kVS;
+  if (c0 + v * 4 >= c) return;              // past C in the last slice
+  const float4* fv = reinterpret_cast<const float4*>(tile_s) + v;
+  auto cell = [&](int y, int x) {
+    return kOneBox ? fv[(y * w + x) * kVS]
+                   : fv[cell_offset(tile, y, x) / 16];
+  };
+  OutT* ov = out + ((size_t)b * p + r0) * kNb * c + c0 + v * 4;
+  for (int kb = threadIdx.x / kVS; kb < nr * kNb;
+       kb += kFwdThreads / kVS) {
+    const int k = kb / kNb;
+    const int bin = kb - k * kNb;
+    const int i = bin / kPooled;
+    const int j = bin - i * kPooled;
+    const unsigned he = hedge[k * kPooled + i];
+    const unsigned we = wedge[k * kPooled + j];
+    const int hlo = he & 0xffffu, hhi = he >> 16;
+    const int wlo = we & 0xffffu, whi = we >> 16;
+    float4 m = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (hhi > hlo && whi > wlo) {
+      m = make_float4(-INFINITY, -INFINITY, -INFINITY, -INFINITY);
+      for (int y = hlo; y < hhi; y += 2) {
+        const int y1 = min(y + 1, hhi - 1);
+        for (int x = wlo; x < whi; x += 2) {
+          const int x1 = min(x + 1, whi - 1);
+          m = max4(m, max4(max4(cell(y, x), cell(y, x1)),
+                           max4(cell(y1, x), cell(y1, x1))));
+        }
+      }
+    }
+    store_out(ov + (size_t)kb * c, m);
   }
 }
 
@@ -489,21 +681,87 @@ __global__ void __launch_bounds__(kGatherThreads)
   }
 }
 
-// The forward on OutVec's element type; see wssdl_roi_pool_fwd.
+// The direct path on OutVec's element type; see wssdl_roi_pool_fwd.
 template <typename OutVec>
-int launch_forward(const float* feat, const float* rois, int batch, int h,
-                   int w, int c, int p, int pooled_h, int pooled_w,
-                   float spatial_scale, int flavor, void* out,
-                   cudaStream_t stream) {
-  if (batch <= 0 || p <= 0) return 0;
+int launch_forward_direct(const float* feat, const float* rois, int batch,
+                          int h, int w, int c, int p, int pooled_h,
+                          int pooled_w, float spatial_scale, int flavor,
+                          void* out, cudaStream_t stream) {
   const int c4 = c / 4;
   int threads = ((c4 + 31) / 32) * 32;
   threads = threads < 32 ? 32 : (threads > 256 ? 256 : threads);
   const dim3 grid(batch * p, pooled_h * pooled_w);
-  roi_pool_fwd_kernel<OutVec><<<grid, threads, 0, stream>>>(
+  roi_pool_fwd_direct_kernel<OutVec><<<grid, threads, 0, stream>>>(
       reinterpret_cast<const float4*>(feat), rois, p, h, w, c4, pooled_h,
       pooled_w, spatial_scale, flavor, reinterpret_cast<OutVec*>(out));
   return (int)cudaGetLastError();
+}
+
+// The shared-memory path's kernel for kVS four-channel vectors a slice.
+template <typename OutT, int kVS>
+int launch_forward_smem_vs(const CUtensorMap& map, const float* rois,
+                           int batch, int h, int w, int c, int p, int rblk,
+                           float spatial_scale, int flavor,
+                           const FwdTile& tile, size_t smem, void* out,
+                           cudaStream_t stream) {
+  auto kernel = tile.nby * tile.nbx == 1
+                    ? roi_pool_fwd_smem_kernel<OutT, kVS, true>
+                    : roi_pool_fwd_smem_kernel<OutT, kVS, false>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((c + 4 * kVS - 1) / (4 * kVS), (p + rblk - 1) / rblk,
+                  batch);
+  kernel<<<grid, kFwdThreads, smem, stream>>>(
+      map, rois, p, h, w, c, rblk, spatial_scale, flavor, tile,
+      reinterpret_cast<OutT*>(out));
+  return (int)cudaGetLastError();
+}
+
+// The shared-memory path, slices of cs channels (16, 8 or 4), blocks of
+// rblk ROIs, 7 x 7 bins.
+template <typename OutT>
+int launch_forward_smem(const float* feat, const float* rois, int batch,
+                        int h, int w, int c, int p, int pooled_h,
+                        int pooled_w, float spatial_scale, int flavor, int cs,
+                        int rblk, void* out, cudaStream_t stream) {
+  if (pooled_h != kPooled || pooled_w != kPooled ||
+      (cs != 16 && cs != 8 && cs != 4) || rblk <= 0 || h >= 32768 ||
+      w >= 32768)
+    return (int)cudaErrorInvalidValue;
+  static tma::EncodeTiled encode = tma::encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorNotSupported;
+  const FwdTile tile = fwd_tile(h, w, cs);
+  const size_t smem = fwd_smem_bytes(tile, rblk);
+  int dev = 0, optin = 0;
+  cudaError_t err;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+  if ((err = cudaDeviceGetAttribute(
+           &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev)) !=
+      cudaSuccess)
+    return (int)err;
+  if (smem > (size_t)optin) return (int)cudaErrorInvalidValue;
+  // dims innermost first: channel, column, row, image; the box is a band
+  // of the map (or a piece of a row), cs channels deep
+  const cuuint64_t dims[4] = {(cuuint64_t)c, (cuuint64_t)w, (cuuint64_t)h,
+                              (cuuint64_t)batch};
+  const cuuint64_t strides[3] = {(cuuint64_t)c * 4, (cuuint64_t)w * c * 4,
+                                 (cuuint64_t)h * w * c * 4};
+  const cuuint32_t box[4] = {(cuuint32_t)cs, (cuuint32_t)tile.bw,
+                             (cuuint32_t)tile.bh, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  CUtensorMap map;
+  if (encode(&map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4,
+             const_cast<float*>(feat), dims, strides, box, unit,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return (int)cudaErrorInvalidValue;
+  auto launch = cs == 16  ? launch_forward_smem_vs<OutT, 4>
+                : cs == 8 ? launch_forward_smem_vs<OutT, 2>
+                          : launch_forward_smem_vs<OutT, 1>;
+  return launch(map, rois, batch, h, w, c, p, rblk, spatial_scale, flavor,
+                tile, smem, out, stream);
 }
 
 // The backward for a GVec cotangent with Cell4 argmax entries; see
@@ -590,23 +848,38 @@ extern "C" {
 // feat [batch, h, w, c] f32 NHWC (c % 4 == 0, 16-byte aligned), rois
 // [batch, p, 4] f32 (x1, y1, x2, y2 in input-image pixels; ROI r of image b
 // pools against image b), out [batch, p, pooled_h, pooled_w, c] f32
-// (16-byte aligned).  flavor 0 = "gpu" bin edges, 1 = "cpu".  Launches on
-// `stream`, does not synchronise, returns the cudaError_t of the launch.
+// (16-byte aligned).  flavor 0 = "gpu" bin edges, 1 = "cpu".  cs > 0: the
+// shared-memory path (7 x 7 bins) with slices of cs = 16, 8 or 4 channels
+// and blocks of rblk ROIs; cs == 0: the direct path.  Launches on
+// `stream`, does not synchronise, returns the cudaError_t of the set-up and
+// launch (cudaErrorInvalidValue if the slice does not fit shared memory).
 int wssdl_roi_pool_fwd(const float* feat, const float* rois, int batch, int h,
                        int w, int c, int p, int pooled_h, int pooled_w,
-                       float spatial_scale, int flavor, float* out,
-                       cudaStream_t stream) {
-  return launch_forward<float4>(feat, rois, batch, h, w, c, p, pooled_h,
-                                pooled_w, spatial_scale, flavor, out, stream);
+                       float spatial_scale, int flavor, int cs, int rblk,
+                       float* out, cudaStream_t stream) {
+  if (batch <= 0 || p <= 0 || c <= 0) return 0;
+  if (cs == 0)
+    return launch_forward_direct<float4>(feat, rois, batch, h, w, c, p,
+                                         pooled_h, pooled_w, spatial_scale,
+                                         flavor, out, stream);
+  return launch_forward_smem<float>(feat, rois, batch, h, w, c, p, pooled_h,
+                                   pooled_w, spatial_scale, flavor, cs, rblk,
+                                   out, stream);
 }
 
 // The same with a bf16 out (8-byte aligned).
 int wssdl_roi_pool_fwd_bf16(const float* feat, const float* rois, int batch,
                             int h, int w, int c, int p, int pooled_h,
                             int pooled_w, float spatial_scale, int flavor,
-                            void* out, cudaStream_t stream) {
-  return launch_forward<uint2>(feat, rois, batch, h, w, c, p, pooled_h,
-                               pooled_w, spatial_scale, flavor, out, stream);
+                            int cs, int rblk, void* out, cudaStream_t stream) {
+  if (batch <= 0 || p <= 0 || c <= 0) return 0;
+  if (cs == 0)
+    return launch_forward_direct<uint2>(feat, rois, batch, h, w, c, p,
+                                        pooled_h, pooled_w, spatial_scale,
+                                        flavor, out, stream);
+  return launch_forward_smem<__nv_bfloat16>(
+      feat, rois, batch, h, w, c, p, pooled_h, pooled_w, spatial_scale,
+      flavor, cs, rblk, out, stream);
 }
 
 // The backward.  feat [batch, h, w, c] and rois as for the forward, g the

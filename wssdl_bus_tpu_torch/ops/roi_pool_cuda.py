@@ -8,6 +8,13 @@ forward, ``_bwd_kernel`` (the f32 VJP ``_fc_vjp_bwd``) and ``_fc_bwd_kernel``
 both layouts: its output [B, P, Ph, Pw, C] is contiguous NHWC, so the flat
 fc6 operand [B, P, Ph*Pw*C] is a view of the same bytes.
 
+The forward has two paths, picked by :func:`forward_plan` from the shapes
+alone: the shared-memory path (each block stages a slice of channels of one
+image's map with TMA and pools a block of ROIs from it) wherever a 4-channel
+slice fits a block's shared memory, the direct path (one block per (ROI,
+bin), windows read from global memory) for larger maps.  Each wrapper
+counts its launches in ``.launches`` and by path in ``.paths``.
+
 ``out_dtype=torch.bfloat16`` is the JAX package's bf16 output option: the
 forward's values are ``bf16(max(feat))``, and the backward receives a bf16
 cotangent and routes by the bf16-rounded feat (``ops/roi_pool.py:
@@ -40,6 +47,61 @@ _FLAVORS = {"gpu": 0, "cpu": 1}
 _SHORT_CELLS = 32767   # csrc/roi_pool.cu kShortCells
 OUT_DTYPES = (torch.float32, torch.bfloat16)
 
+# The forward's shared-memory path (csrc/roi_pool.cu, launch_forward_smem)
+SMEM_PER_BLOCK = 232448   # bytes of shared memory a block may use on sm_90
+SMEM_PER_SM = 233472      # an SM's shared memory; each block reserves 1 KB
+SMS = 132                 # the H100 SXM's streaming multiprocessors
+THREADS = 1024            # kFwdThreads: two blocks an SM at most
+SLICES = (16, 8, 4)       # f32 channels a block stages, widest first
+BOX_MAX = 256             # kBoxMax: a TMA box's largest dimension
+
+
+def staged_tile_bytes(h: int, w: int, cs: int) -> int:
+    """Shared-memory bytes of one image's ``cs``-channel slice as
+    ``csrc/roi_pool.cu:fwd_tile`` lays it out: TMA boxes of at most 256 rows
+    and columns (bands of whole rows, or pieces of each row of a map wider
+    than 256), each in its own 128-byte aligned region."""
+    if w <= BOX_MAX:
+        nbx, bw = 1, w
+        nby = -(-h // BOX_MAX)
+        bh = -(-h // nby)
+    else:
+        nby, bh = h, 1
+        nbx = -(-w // BOX_MAX)
+        bw = -(-w // nbx)
+    return nby * nbx * (-(-bh * bw * cs * 4 // 128) * 128)
+
+
+def forward_plan(b: int, h: int, w: int, c: int, p: int, pooled_h: int = 7,
+                 pooled_w: int = 7) -> tuple[int, int]:
+    """The forward's path for [b, h, w, c] x [b, p, 4] (b, c, p >= 1):
+    (channels a slice, ROIs a block) of the shared-memory path, or (0, 0)
+    for the direct path.
+
+    The shared-memory path takes 7 x 7 bins and the widest slice of 16, 8,
+    4 channels (at most c) whose tile, with its block's bin edges, fits a
+    block's shared memory.  Each block stages its whole slice, so blocks
+    are few and large: the ROIs are cut into the number of blocks nearest
+    one wave of resident blocks (132 SMs, one block of 16 channels or two
+    of fewer an SM), at least one, more only where the edges would not
+    fit."""
+    if (pooled_h, pooled_w) != (7, 7):
+        return 0, 0
+    for cs in SLICES:
+        if cs > c:
+            continue
+        tile = 128 + staged_tile_bytes(h, w, cs) + 16   # + the barrier
+        edges = (pooled_h + pooled_w) * 4                # bytes a ROI
+        if tile + edges > SMEM_PER_BLOCK:
+            continue
+        resident = min(SMEM_PER_SM // (tile + 1024), 2048 // THREADS)
+        grid_x = -(-c // cs) * b
+        n = min(p, max(1, round(SMS * resident / grid_x)))
+        rblk = -(-p // n)
+        rblk = min(rblk, (SMEM_PER_BLOCK - tile) // edges)
+        return cs, rblk
+    return 0, 0
+
 
 @functools.lru_cache(maxsize=None)
 def _lib():
@@ -48,7 +110,8 @@ def _lib():
 
     lib = _build.load("roi_pool")
     fwd_args = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 7 \
-        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+        + [ctypes.c_float] + [ctypes.c_int] * 3 \
+        + [ctypes.c_void_p, ctypes.c_void_p]
     bwd_args = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 \
         + [ctypes.c_float, ctypes.c_int] + [ctypes.c_void_p] * 4
     fns = {}
@@ -136,25 +199,28 @@ def _check_cuda(feat, rois, flavor, out_dtype=torch.float32):
 
 
 def _launch_forward(feat, rois, pooled_h, pooled_w, spatial_scale, flavor,
-                    out_dtype):
+                    out_dtype, plan=None):
+    """The forward kernel on :func:`forward_plan`'s path; ``plan`` (cs,
+    rblk) overrides it, for measurements only (``chip_smoke.py``)."""
     b, h, w, c = feat.shape
     p = rois.shape[1]
     out = torch.empty((b, p, pooled_h * pooled_w * c), dtype=out_dtype,
                       device=feat.device)
-    if b == 0 or p == 0:
+    if b == 0 or p == 0 or c == 0:
         return out
+    cs, rblk = plan or forward_plan(b, h, w, c, p, pooled_h, pooled_w)
     with torch.cuda.device(feat.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _lib()[out_dtype][0](
             feat.data_ptr(), rois.data_ptr(), b, h, w, c, p, pooled_h,
-            pooled_w, float(spatial_scale), _FLAVORS[flavor], out.data_ptr(),
-            stream)
+            pooled_w, float(spatial_scale), _FLAVORS[flavor], cs, rblk,
+            out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"roi_pool kernel launch failed: cudaError {err}")
-    if out_dtype == torch.bfloat16:
-        roi_pool_fc_bf16.launches += 1
-    else:
-        roi_pool_fc.launches += 1
+    wrapper = roi_pool_fc_bf16 if out_dtype == torch.bfloat16 \
+        else roi_pool_fc
+    wrapper.launches += 1
+    wrapper.paths["smem" if cs else "direct"] += 1
     return out
 
 
@@ -172,7 +238,8 @@ def roi_pool_fc(feat: torch.Tensor, rois: torch.Tensor, pooled_h: int = 7,
       out_dtype: torch.float32, or torch.bfloat16 for the bf16 option.
     Returns [B, P, Ph*Pw*C] in ``out_dtype``, NHWC (ph, pw, c) flatten
     order.  The f32 launches count on ``roi_pool_fc.launches``, the bf16
-    ones on ``roi_pool_fc_bf16.launches``.
+    ones on ``roi_pool_fc_bf16.launches``, and by path (:func:`forward_plan`)
+    on each wrapper's ``.paths``.
     """
     if feat.device.type == "cpu" and rois.device.type == "cpu":
         return roi_pool_fc_plain(feat, rois, pooled_h, pooled_w,
@@ -183,6 +250,7 @@ def roi_pool_fc(feat: torch.Tensor, rois: torch.Tensor, pooled_h: int = 7,
 
 
 roi_pool_fc.launches = 0
+roi_pool_fc.paths = {"smem": 0, "direct": 0}
 
 
 def roi_pool_fc_bf16(feat: torch.Tensor, rois: torch.Tensor,
@@ -195,6 +263,7 @@ def roi_pool_fc_bf16(feat: torch.Tensor, rois: torch.Tensor,
 
 
 roi_pool_fc_bf16.launches = 0
+roi_pool_fc_bf16.paths = {"smem": 0, "direct": 0}
 
 
 def _launch_backward(feat, rois, grad, pooled_h, pooled_w, spatial_scale,
