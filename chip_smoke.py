@@ -51,8 +51,11 @@ Phases (any failure exits non-zero; nothing is caught):
      kernel against their plain versions (values and dfeat identical; the
      MIL-sparse, dense and tie cotangents of phase 5 in bf16), then the
      op's own path, ``roi_pool_fc(out_dtype=bf16)`` under autograd, with
-     the launch counters around it; and, for information, whether the
-     backward routes like ``roi_pool_grad`` when windows hold a NaN;
+     the launch counters around it; then both backward kernels (#4, #5)
+     under NaNs in the map (in bins, in a window below a bin, outside the
+     ROIs' columns) and in the cotangent (some ROIs, all of it), on the
+     supervised and the weak group: the same NaN positions as the plain
+     versions (which follow the Pallas kernels) and equal values elsewhere;
   9. the opt-in stem paths, ``WSSDL_FUSED_STEM=1`` and then
      ``WSSDL_STEM_TAIL=1``: serving (3 batch-1 + 1 batch-8 requests) and
      training (3 combined + 1 MIL steps) with the counters around each
@@ -64,7 +67,18 @@ Phases (any failure exits non-zero; nothing is caught):
      parameters within phase 6's tolerances) with both sides given the
      kernel's stem, and the stem path's distance from the default f32 stem
      printed for information;
- 10. a ``{"kernels": [...]}`` line, then the last line
+ 10. the evaluation entry point, ``python -m wssdl_bus_tpu_torch.main.test``
+     (its ``main``), over a synthetic SNUBH-layout imdb of 16 images (8 at
+     450 x 600, 8 at 480 x 640) from a port snapshot of seeded He weights,
+     TEST defaults, at batch 1 and batch 8 and once with
+     ``TEST.DEBUG_TIMELINE``: the native host library loads; one NMS and
+     one pool forward per device step (16 and 2), all on the shared-memory
+     path; ``detections.pkl``, ``eval.txt`` (AP / CorLoc / Mean AP) and the
+     FROC points written, and the trace; ms/image split into host read +
+     prep, device step (CUDA events), copy-back + decode and NMS; then
+     (after phase 6 turns TF32 off) ``test_net`` at batch 8 through the
+     kernels and with ``plain_ops=True``: all_boxes equal;
+ 11. a ``{"kernels": [...]}`` line, then the last line
      ``{"ok": true, "device": {...}}``.
 
 ``--profile`` adds torch.profiler breakdowns (device time by kernel, busy
@@ -709,7 +723,7 @@ def training_groups(eng, batch):
 
 
 # the backward's launches (csrc/roi_pool.cu), as phase_split names them
-BACKWARD_PHASES = ("roi_rows_active", "roi_rows_compact", "roi_argmax",
+BACKWARD_PHASES = ("roi_rows_scan", "roi_rows_compact", "roi_argmax",
                    "roi_gather")
 
 
@@ -811,40 +825,115 @@ def check_backward_kernel(eng, groups, dtype):
             "dense_weak_ms": tdense, "dense_weak_split_ms": split}
 
 
-def backward_nan_routing(eng, groups) -> dict:
-    """For information (the backward is not changed): the backward kernel
-    against ``roi_pool_grad`` when windows hold a NaN, on the supervised
-    group with 64 NaNs planted in its map and a dense cotangent.  The plain
-    version's argmax takes a NaN as the maximum; the kernel's ">" compares
-    never select one.  -> whether they agree, and on how many elements of
-    dfeat they differ."""
+NAN_CASES = ("in_bins", "below_bins", "outside_columns", "g_some_rois",
+             "g_all")
+
+
+def plant_nans(case, f, rois, g, scale, seed):
+    """(f, g) copies with the NaNs of one backward NaN case, planted by the
+    windows of ROIs 0..7 of each image (in the MIL pattern ROI 0 is the
+    active one): a cell inside a bin; the row just below bin row 0, inside
+    its window; a cell of bin row 0's rows outside every ROI's columns (or,
+    where the ROIs cover every column, outside the ROI's own); NaN
+    cotangents in some ROIs (one in a single channel block); a fully NaN
+    cotangent, the diverged step."""
     import torch
 
-    from wssdl_bus_tpu_torch.ops.roi_pool import roi_pool_grad
-    from wssdl_bus_tpu_torch.ops.roi_pool_cuda import roi_pool_fc_backward
+    from wssdl_bus_tpu_torch.ops.roi_pool import bin_edges, quantize_rois
+
+    f, g = f.clone(), g.clone()
+    b, h, w, c = f.shape
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    if case == "g_all":
+        g[:] = float("nan")
+        return f, g
+    if case == "g_some_rois":
+        g4 = g.view(b, rois.shape[1], 49, c)
+        for bi in range(b):
+            for r in range(min(4, rois.shape[1])):
+                ch = int(torch.randint(0, c, (1,), generator=gen))
+                g4[bi, r, int(torch.randint(0, 49, (1,), generator=gen)),
+                   ch] = float("nan")
+        return f, g
+    rsw, rsh, roi_w, roi_h = quantize_rois(rois.reshape(-1, 4).cpu(), scale)
+    hlo, hhi = bin_edges(rsh, roi_h, 7, h, "gpu")
+    wlo, whi = bin_edges(rsw, roi_w, 7, w, "gpu")
+    p = rois.shape[1]
+    for bi in range(b):
+        covered = torch.zeros(w, dtype=torch.bool)
+        for q in range(bi * p, (bi + 1) * p):
+            covered[int(wlo[q, 0]):int(whi[q, -1])] = True
+        for r in range(min(8, p)):
+            q = bi * p + r
+            ch = int(torch.randint(0, c, (1,), generator=gen))
+            y0, y1 = int(hlo[q, 0]), int(hhi[q, -1])
+            x0, x1 = int(wlo[q, 0]), int(whi[q, -1])
+            if y1 <= y0 or x1 <= x0:
+                continue
+            if case == "in_bins":
+                y, x = (y0 + y1) // 2, (x0 + x1) // 2
+            elif case == "below_bins":
+                y, x = min(int(hhi[q, 0]), h - 1), x0
+            else:
+                free = (~covered).nonzero().flatten()
+                y = y0
+                x = int(free[r % len(free)]) if len(free) else (
+                    x1 if x1 < w else x0 - 1)
+                if x < 0:
+                    continue
+            f[bi, y, x, ch] = float("nan")
+    return f, g
+
+
+def check_backward_nan_routing(eng, groups) -> dict:
+    """Phase 8b: both backward kernels (#4 f32, #5 bf16) against their
+    plain versions, which follow the Pallas kernels, under NaNs: in the map
+    (inside bins, in a window below a bin, outside the ROIs' columns inside
+    a window's rows) and in the cotangent (some ROIs, all of it), on the
+    supervised (dense cotangent) and the weak (MIL cotangent) group.  The
+    same NaN positions and equal values elsewhere, or the run fails."""
+    import torch
+
+    from wssdl_bus_tpu_torch.ops.roi_pool import (roi_pool_grad,
+                                                  roi_pool_grad_bf16)
+    from wssdl_bus_tpu_torch.ops.roi_pool_cuda import (
+        roi_pool_fc_backward, roi_pool_fc_backward_bf16)
 
     scale = 1.0 / eng.cfg.FEAT_STRIDE
-    f, rois = groups["sup"]
-    f = f.clone()
-    gen = torch.Generator(device=f.device).manual_seed(4)
-    f[tuple(torch.randint(0, n, (64,), generator=gen, device=f.device)
-            for n in f.shape)] = float("nan")
-    g = torch.randn((1, rois.shape[1], 49 * f.shape[-1]), generator=gen,
-                    device=f.device)
-    got = roi_pool_fc_backward(f, rois, g, 7, 7, scale)
-    want = roi_pool_grad(f, rois, g, 7, 7, scale)
-    torch.cuda.synchronize()
-    same = (got == want) | (got.isnan() & want.isnan())
-    differ = int((~same).sum())
-    print(f"[backward] NaN in windows (information): kernel vs plain "
-          f"roi_pool_grad on the supervised group: "
-          f"{'agree' if differ == 0 else f'differ in {differ} of'} "
-          f"{got.numel()} dfeat elements ({int(want.isnan().sum())} NaN in "
-          f"the plain dfeat, {int(got.isnan().sum())} in the kernel's)",
-          flush=True)
-    return {"agree": differ == 0, "differing": differ,
-            "nan_plain": int(want.isnan().sum()),
-            "nan_kernel": int(got.isnan().sum())}
+    gen = torch.Generator(device=eng.device).manual_seed(4)
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        bf16 = dtype == torch.bfloat16
+        kernel = roi_pool_fc_backward_bf16 if bf16 else roi_pool_fc_backward
+        plain = roi_pool_grad_bf16 if bf16 else roi_pool_grad
+        tag = "[backward-bf16]" if bf16 else "[backward]"
+        for k, (f, rois) in groups.items():
+            shape = (rois.shape[0], rois.shape[1], 49 * f.shape[-1])
+            g = torch.randn(shape, generator=gen, device=eng.device)
+            if k == "weak":      # one row per bag, as MIL leaves it
+                g[:, 1:] = 0.0
+            for n, case in enumerate(NAN_CASES):
+                fn, gn = plant_nans(case, f, rois, g, scale, seed=n)
+                gn = gn.to(dtype)
+                got = kernel(fn, rois, gn, 7, 7, scale)
+                want = plain(fn, rois, gn, 7, 7, scale)
+                torch.cuda.synchronize()
+                nan = want.isnan()
+                same = bool(torch.equal(got.isnan(), nan)) and bool(
+                    torch.equal(got.masked_fill(nan, 0),
+                                want.masked_fill(nan, 0)))
+                routed = int((fn.isnan().any(-1)).sum())
+                print(f"{tag} NaN {case:15s} {k:4s}: {routed} map cells "
+                      f"and {int(gn.isnan().sum())} cotangent entries NaN; "
+                      f"kernel {'==' if same else '!='} plain "
+                      f"({int(nan.sum())} NaN, {int((want != 0).sum())} "
+                      "nonzero in dfeat)", flush=True)
+                _check(same, f"{tag} NaN case {case} on the {k} group: "
+                       "kernel != plain")
+                out[f"{dtype}:{k}:{case}"] = {
+                    "nan_dfeat": int(nan.sum()),
+                    "nonzero_dfeat": int((want != 0).sum())}
+    return out
 
 
 def check_train_forward(eng, groups) -> dict:
@@ -1420,6 +1509,167 @@ def stem_distance(eng, requests, net, det_default, name) -> dict:
     return {"feat_rel_max_diff": rel, "requests_identical": same}
 
 
+EVAL_IMAGES = 16          # the evaluation phase's synthetic imdb
+
+
+def write_eval_imdb(root: str, seed: int = 7) -> None:
+    """A synthetic SNUBH-layout imdb: ``TIFFImages/*.tif`` (grayscale
+    uint8 speckle with a mass, 8 at 450 x 600 and 8 at 480 x 640),
+    ``Annotations/*.xml`` (a benign or malignant box on the mass, a
+    ``__background__`` box, ``<BIRADS><diag>``) and
+    ``ImageSets/Main/test.txt``."""
+    from PIL import Image
+
+    rng = np.random.RandomState(seed)
+    for d in ("TIFFImages", "Annotations", os.path.join("ImageSets",
+                                                        "Main")):
+        os.makedirs(os.path.join(root, d), exist_ok=True)
+    names = []
+    for k in range(EVAL_IMAGES):
+        h, w = (450, 600) if k % 2 == 0 else (480, 640)
+        im, box = speckle_with_mass(rng, h, w)
+        name = f"eval_{k:03d}"
+        Image.fromarray(im).save(os.path.join(root, "TIFFImages",
+                                              name + ".tif"))
+        x1, y1 = max(int(box[0]), 0), max(int(box[1]), 0)
+        x2, y2 = min(int(box[2]), w - 1), min(int(box[3]), h - 1)
+        objs = [("benign" if k % 4 < 2 else "malignant", x1, y1, x2, y2),
+                ("__background__", 0, h // 2, w - 1, h - 1)]
+        xml = "".join(
+            f"<object><name>{n}</name><difficult>0</difficult><bndbox>"
+            f"<xmin>{a + 1}</xmin><ymin>{b + 1}</ymin><xmax>{c + 1}</xmax>"
+            f"<ymax>{d + 1}</ymax></bndbox></object>"
+            for n, a, b, c, d in objs)
+        with open(os.path.join(root, "Annotations", name + ".xml"),
+                  "w") as f:
+            f.write(f"<annotation>{xml}<BIRADS><diag>{k % 2}</diag>"
+                    "</BIRADS></annotation>")
+        names.append(name)
+    with open(os.path.join(root, "ImageSets", "Main", "test.txt"), "w") as f:
+        f.write("\n".join(names) + "\n")
+
+
+def run_evaluation(tmpdir: str, out_dir: str, smi: str) -> dict:
+    """Phase 10: the evaluation entry point, ``wssdl_bus_tpu_torch.main.
+    test.main``, on the card over a synthetic imdb from a port snapshot of
+    seeded He weights, with TEST defaults, at batch 1 and batch 8, then
+    batch 8 with ``TEST.DEBUG_TIMELINE``.  Each run: the counters around
+    it (one NMS and one pool forward per device step, all on the
+    shared-memory path), its files, and its ms/image by stage."""
+    import contextlib as ctx
+
+    import torch
+
+    from wssdl_bus_tpu_torch import native
+    from wssdl_bus_tpu_torch.main import test as main_test
+    from wssdl_bus_tpu_torch.train.checkpoint import save_checkpoint
+
+    _check(native.available(), "the native host library did not build or "
+           "load")
+    data = os.path.join(tmpdir, "eval_data")
+    write_eval_imdb(data)
+    snap = save_checkpoint(os.path.join(tmpdir, "snapshots"), "vgg16", "", 0,
+                           build_model("cuda", seed=0).state_dict())
+    os.makedirs(out_dir, exist_ok=True)
+    runs = {}
+    for tag, bs, extra in (("batch1", 1, []), ("batch8", BATCH, []),
+                           ("trace", BATCH, ["--set_cfgs",
+                                             "TEST.DEBUG_TIMELINE", "True"])):
+        out = os.path.join(tmpdir, f"eval_{tag}")
+        timings = {}
+        reset_counts()
+        log = os.path.join(out_dir, f"eval_{tag}.log")
+        with open(log, "w") as f, ctx.redirect_stdout(f):
+            all_boxes, result = main_test.main(
+                ["--model", snap, "--imdb_test", "bus_test", "--data_dir",
+                 data, "--network", "VGGnet_test", "--output_dir", out,
+                 "--batch_size", str(bs), *extra], timings=timings)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        steps = -(-EVAL_IMAGES // bs)
+        _check(timings["steps"] == steps, f"evaluation {tag}: "
+               f"{timings['steps']} device steps, expected {steps}")
+        check_counts(counts, {"nms_keep": steps, "roi_pool_fc": steps},
+                     f"evaluation {tag}")
+        by_path = check_pool_paths(counts, f"eval_{tag}")
+        names = set(os.listdir(out))
+        for want in ("detections.pkl", "eval.txt", "froc_curve_pts.npy",
+                     "all_arr_ok.npy"):
+            _check(want in names, f"evaluation {tag}: no {want} written")
+        with open(os.path.join(out, "eval.txt")) as f:
+            text = f.read()
+        for line in ("AP for benign", "CorLoc for benign", "AP for malignant",
+                     "CorLoc for malignant", "Mean AP", "CorLoc ="):
+            _check(line in text, f"evaluation {tag}: eval.txt lacks "
+                   f"'{line}'")
+        if tag == "trace":
+            tdir = os.path.join(out, "torch_trace")
+            _check(os.path.isdir(tdir) and os.listdir(tdir),
+                   "evaluation: DEBUG_TIMELINE wrote no trace")
+        n = EVAL_IMAGES
+        ms = {"ms_per_image": timings["wall_s"] * 1e3 / n,
+              "read_prep_ms_per_image": timings["read_prep_s"] * 1e3 / n,
+              "device_step_ms_per_image": timings["device_ms"] / n,
+              "decode_ms_per_image": timings["decode_s"] * 1e3 / n,
+              "nms_ms_per_image": timings["nms_s"] * 1e3 / n}
+        n_dets = sum(len(all_boxes[j][i]) for j in (1, 2) for i in range(n))
+        runs[tag] = dict(ms, launches=counts, pool_paths=by_path,
+                         result=[float(x) for x in result],
+                         detections=n_dets, steps=steps)
+        print(f"[eval] {tag}: {n} images, batch {bs}, {steps} device steps;"
+              f" launches {counts['nms_keep']} NMS + {counts['roi_pool_fc']}"
+              f" pool forward ({by_path}); {n_dets} detections; CorLoc "
+              f"{runs[tag]['result']}; {ms['ms_per_image']:.3f} ms/image = "
+              f"host read + prep {ms['read_prep_ms_per_image']:.3f} (on the "
+              f"prefetch thread) | device step "
+              f"{ms['device_step_ms_per_image']:.3f} (CUDA events) | "
+              f"copy-back + decode {ms['decode_ms_per_image']:.3f} | NMS + "
+              f"cap {ms['nms_ms_per_image']:.3f}; {smi}", flush=True)
+    return {"snapshot": snap, "data": data, "runs": runs}
+
+
+def check_eval_parity(ev: dict, tmpdir: str):
+    """Phase 10b (TF32 off): ``test_net`` at batch 8 through the kernels and
+    on an Engine with ``plain_ops=True``, from the same snapshot: all_boxes
+    equal."""
+    from wssdl_bus_tpu_torch.config import Config
+    from wssdl_bus_tpu_torch.data.augment import max_canvas
+    from wssdl_bus_tpu_torch.data.dataset import get_imdb, prepare_roidb
+    from wssdl_bus_tpu_torch.evaluate.detect import test_net as run_test_net
+    from wssdl_bus_tpu_torch.models.detector import build_detector
+    from wssdl_bus_tpu_torch.train.checkpoint import load_checkpoint
+    from wssdl_bus_tpu_torch.train.engine import Engine
+
+    cfg = Config()
+    imdb = get_imdb("bus_test", ev["data"])
+    sizes = [(e["height"], e["width"]) for e in prepare_roidb(imdb)]
+    canvas = max_canvas(sizes, cfg.TEST.SCALES[0], cfg.TEST.MAX_SIZE)
+    model = build_detector("VGGnet_test", device="cuda")
+    model.load_state_dict(load_checkpoint(ev["snapshot"], "cuda")[0])
+    out = {}
+    for plain in (False, True):
+        eng = Engine(model, cfg, canvas, plain_ops=plain)
+        out[plain], _ = run_test_net(
+            eng, imdb, os.path.join(tmpdir, f"eval_parity_{plain}"),
+            "VGGnet_test", canvas, verbose=False, batch_size=BATCH)
+    same, err = True, 0.0
+    for j in (1, 2):
+        for i in range(imdb.num_images):
+            a, b = np.asarray(out[False][j][i]), np.asarray(out[True][j][i])
+            if a.shape != b.shape:
+                same = False
+                continue
+            if a.size:
+                err = max(err, float(np.abs(a - b).max()))
+            same &= bool(np.array_equal(a, b))
+    print(f"[parity] evaluation (TF32 off): test_net at batch {BATCH} "
+          f"through the kernels vs plain_ops=True: all_boxes "
+          f"{'equal' if same else f'differ (max |diff| {err})'}",
+          flush=True)
+    _check(same, "evaluation: all_boxes through the kernels differ from "
+           "the plain run")
+
+
 def main() -> int:
     import torch
 
@@ -1595,7 +1845,8 @@ def main() -> int:
     stats["roi_pool_fc_bf16"]["per_shape"] = {
         "serve": stats.pop("roi_pool_fc_bf16_serve"),
         "train": train_fwd["bf16"]["per_group"]}
-    stats["roi_pool_fc_backward_nan"] = backward_nan_routing(teng, groups)
+    stats["roi_pool_fc_backward_nan"] = check_backward_nan_routing(
+        teng, groups)
     stats["roi_pool_fc_backward_bf16"] = check_backward_kernel(
         teng, groups, torch.bfloat16)
     bf16_launches = run_bf16_pool_path(teng, groups)
@@ -1604,6 +1855,9 @@ def main() -> int:
     # phase 9: the opt-in stem paths, serving and training
     stem_runs = {name: run_stem_path(name, eng, requests, net, teng, joint,
                                      weak, smi) for name in STEM_PATHS}
+
+    # phase 10: the evaluation entry point over a synthetic imdb
+    evaluation = run_evaluation(tmp.name, out_dir, smi)
 
     # phase 6 (and 9): parity with the plain versions, TF32 off on both
     # sides so the trunks are bit-identical
@@ -1633,10 +1887,13 @@ def main() -> int:
         parity[name]["stem_rel_err"] = stem_err
         parity[name]["vs_default_stem"] = stem_distance(
             eng, requests, net, det_default, name)
+    check_eval_parity(evaluation, tmp.name)
     tmp.cleanup()
 
     paths = {"serve": serve_launches, "train": train_launches,
              "bf16_pool": bf16_launches}
+    for tag, run in evaluation["runs"].items():
+        paths[f"eval_{tag}"] = run["launches"]
     for name, run in stem_runs.items():
         paths[f"serve_{STEM_PATHS[name]}"] = run["serve_launches"]
         paths[f"train_{STEM_PATHS[name]}"] = run["train_launches"]
@@ -1714,6 +1971,9 @@ def main() -> int:
                           k: stats[k]["dense_weak_ms"] for k in (
                               "roi_pool_fc_backward",
                               "roi_pool_fc_backward_bf16")},
+                      "evaluation": {k: {m: v for m, v in r.items()
+                                         if m != "launches"}
+                                     for k, r in evaluation["runs"].items()},
                       "stem_paths": {STEM_PATHS[n]: {
                           k: v for k, v in r.items() if k in (
                               "serving", "training")}

@@ -29,6 +29,7 @@ import numpy as np
 import pytest
 import torch
 
+from wssdl_bus_tpu import native as jax_native
 from wssdl_bus_tpu.config import Config as JaxConfig
 from wssdl_bus_tpu.data.augment import max_canvas as jax_max_canvas
 from wssdl_bus_tpu.evaluate.detect import get_image_blob as jax_image_blob
@@ -40,6 +41,7 @@ from wssdl_bus_tpu.ops.proposal import proposal_layer as jax_proposal_layer
 from wssdl_bus_tpu.ops.roi_pool_pallas import roi_pool_grouped as jax_pool
 from wssdl_bus_tpu.serve import report_detections as jax_report
 from wssdl_bus_tpu.train.engine import Engine as JaxEngine
+from wssdl_bus_tpu_torch import native
 from wssdl_bus_tpu_torch.config import Config
 from wssdl_bus_tpu_torch.data.augment import max_canvas
 from wssdl_bus_tpu_torch.evaluate.detect import (get_image_blob, im_detect,
@@ -101,15 +103,21 @@ def _jax_trunk(s):
 
 
 def test_prep_image_matches_jax(both):
-    """The port resizes through PIL, the JAX package through its native C++
-    triangle filter: the same bilinear convention in f32, different
-    summation order, so pixel values (in x255 units) agree to 1e-4."""
+    """Both packages resize through the same native C++ triangle filter
+    (the port's ``native/`` is its own copy of the JAX package's source)
+    when both libraries build: pixels equal.  Otherwise the port resizes
+    through PIL, the same bilinear convention in f32 with another summation
+    order, and pixel values (in x255 units) agree to 1e-4."""
+    exact = jax_native.available() and native.available()
     for im in both["images"]:
         want, want_scale, want_hw = jax_image_blob(im, NET, both["jeng"].cfg,
                                                    CANVAS)
         got, scale, hw = get_image_blob(im, NET, both["eng"].cfg, CANVAS)
         assert (scale, hw) == (want_scale, want_hw) == (192 / 150, CANVAS)
-        np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
+        if exact:
+            np.testing.assert_array_equal(got, want)
+        else:
+            np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
 
 
 def test_max_canvas_matches_jax():

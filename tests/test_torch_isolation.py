@@ -111,6 +111,74 @@ def test_training_loads_no_jax_module():
     assert [m for m in res["modules"] if _forbidden(m)] == []
 
 
+_HELP = """
+import json, runpy, sys
+sys.argv = ["wssdl_bus_tpu_torch.main.test", "--help"]
+try:
+    runpy.run_module("wssdl_bus_tpu_torch.main.test", run_name="__main__")
+except SystemExit:
+    pass
+print(json.dumps({"modules": sorted(sys.modules)}))
+"""
+
+_TEST_NET_ON_CPU = """
+import json, os, sys, tempfile
+import numpy as np
+import torch
+from PIL import Image
+torch.set_num_threads(2)
+from wssdl_bus_tpu_torch.config import Config
+from wssdl_bus_tpu_torch.data.dataset import get_imdb
+from wssdl_bus_tpu_torch.evaluate.detect import test_net as run
+from wssdl_bus_tpu_torch.models.convert import he_init_
+from wssdl_bus_tpu_torch.models.detector import build_detector
+from wssdl_bus_tpu_torch.train.engine import Engine
+d = tempfile.mkdtemp()
+for sub in ("TIFFImages", "Annotations", "ImageSets/Main"):
+    os.makedirs(os.path.join(d, sub))
+rng = np.random.RandomState(0)
+for k in range(2):
+    Image.fromarray(rng.randint(0, 255, (40, 60)).astype(np.uint8)).save(
+        os.path.join(d, "TIFFImages", f"t{k}.tif"))
+    with open(os.path.join(d, "Annotations", f"t{k}.xml"), "w") as f:
+        f.write("<annotation><object><name>benign</name><difficult>0"
+                "</difficult><bndbox><xmin>5</xmin><ymin>5</ymin><xmax>30"
+                "</xmax><ymax>25</ymax></bndbox></object><BIRADS><diag>0"
+                "</diag></BIRADS></annotation>")
+with open(os.path.join(d, "ImageSets", "Main", "test.txt"), "w") as f:
+    f.write("t0\\nt1\\n")
+cfg = Config().with_overrides(["TEST.SCALES", "(64,)", "TEST.MAX_SIZE", "96",
+                               "TEST.RPN_PRE_NMS_TOP_N", "50",
+                               "TEST.RPN_POST_NMS_TOP_N", "10"])
+model = he_init_(build_detector("VGGnet_test", device="cpu"), 0, 64.0)
+eng = Engine(model, cfg, (64, 96), device="cpu")
+boxes, res = run(eng, get_imdb("bus_test", d), os.path.join(d, "out"),
+                 "VGGnet_test", (64, 96), verbose=False, batch_size=2)
+print(json.dumps({"modules": sorted(sys.modules), "result": list(res)}))
+"""
+
+
+@pytest.mark.parametrize("script", ["help", "test_net"])
+def test_evaluation_loads_no_jax_module(script):
+    """``python -m wssdl_bus_tpu_torch.main.test --help``, and ``test_net``
+    over a two-image imdb on the CPU, in fresh processes."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    code = _HELP if script == "help" else _TEST_NET_ON_CPU
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300,
+                         check=True)
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    if script == "help":
+        assert "wssdl_bus_tpu_torch.main.common" in res["modules"]
+    else:
+        assert len(res["result"]) == 3
+        for m in ("wssdl_bus_tpu_torch.evaluate.voc_eval",
+                  "wssdl_bus_tpu_torch.data.loader",
+                  "wssdl_bus_tpu_torch.native"):
+            assert m in res["modules"]
+    assert [m for m in res["modules"] if _forbidden(m)] == []
+
+
 def _imports(path):
     with open(path) as f:
         tree = ast.parse(f.read(), path)

@@ -360,43 +360,111 @@ def _roi_edges(roi, ph, pw, h, w, flavor):
             [_edges(j, rsw, rw, pw, w, flavor) for j in range(pw)])
 
 
+LIMIT = F32(2.0 ** 96)   # csrc/roi_pool.cu routes_out
+
+
+def _beats(v, best):
+    return (v > best) | (np.isnan(v) & ~np.isnan(best))
+
+
+def _route_window(rank, bi, sh, span_h, hlo, hhi, wlo, whi):
+    """route_window: the Pallas additive-mask routing over the bin row's
+    window, all W columns, NaN first."""
+    w = rank.shape[2]
+    best = bh = bw = None
+    for x in range(w):
+        cm = ch = None
+        for y in range(sh, sh + span_h):
+            v = rank[bi, y, x] + F32(0.0 if hlo <= y < hhi else -1e30)
+            if cm is None:
+                cm, ch = v, np.full(v.shape, y)
+            else:
+                up = _beats(v, cm)
+                cm, ch = np.where(up, v, cm), np.where(up, y, ch)
+        cm = cm + F32(0.0 if wlo <= x < whi else -1e30)
+        if best is None:
+            best, bh, bw = cm, ch, np.full(cm.shape, x)
+        else:
+            up = _beats(cm, best)
+            best, bh, bw = (np.where(up, cm, best), np.where(up, ch, bh),
+                            np.where(up, x, bw))
+    return bh * w + bw
+
+
 def roi_bwd_schedule(feat, rois, g, ph=7, pw=7, flavor="gpu", bf16=False,
                      chunk=3):
     """The backward kernels on [B, H, W, C] / [B, P, 4] / [B, P, Ph*Pw*C]:
-    active rows, compaction, argmax table, gather; rows are walked in chunks
-    of ``chunk`` (the gather block's, small here to cross chunk edges)."""
+    the scan (listed rows, f32 channel blocks, empty bins' non-finite
+    cotangents, map rows that route out), compaction, argmax table (the
+    bin's fast scan, or route_window), gather (marked bin rows over their
+    windows); rows are walked in chunks of ``chunk`` (the gather block's,
+    small here to cross chunk edges)."""
+    with np.errstate(invalid="ignore"):
+        return _roi_bwd_schedule(feat, rois, g, ph, pw, flavor, bf16, chunk)
+
+
+def _roi_bwd_schedule(feat, rois, g, ph, pw, flavor, bf16, chunk):
     b_n, h, w, c = feat.shape
     p = rois.shape[1]
     g = g.reshape(b_n, p, ph, pw, c).astype(F32)
     rank = _bf16(feat) if bf16 else feat
-    # 1-2: the flagged rows in ascending order, each image's first position
-    flat = g.reshape(b_n * p, -1)
-    rows = [q for q in range(b_n * p) if (flat[q] != 0).any()]
+    span_h = min(h // ph + 2, h)
+    cb = min(c, 256)
+    nblk = c // cb
+    # 1: the scan
+    flat = g.reshape(b_n * p, ph, pw, c)
+    blk_active = np.zeros((b_n * p, c), bool)
+    for q in range(b_n * p):
+        for blk in range(nblk):
+            gb = flat[q, ..., blk * cb:(blk + 1) * cb]
+            blk_active[q, blk * cb:(blk + 1) * cb] = \
+                (gb != 0).any() and not np.isnan(gb).any()
+    if bf16:
+        act_row = (flat != 0).reshape(b_n * p, -1).any(1)
+        blk_active[:] = act_row[:, None]
+    rows = [q for q in range(b_n * p) if blk_active[q].any()]
     starts = [sum(1 for q in rows if q < bi * p) for bi in range(b_n + 1)]
-    # 3: the argmax table, -1 for an empty bin
+    special = np.isnan(rank) | (np.abs(rank) > LIMIT)
+    rowflag = special.any(axis=(2, 3))                       # [B, H]
+    cnt = np.concatenate([np.zeros((b_n, 1), int),
+                          np.cumsum(rowflag, axis=1)], axis=1)
+    # 3: the argmax table, -1 for an empty bin; the rows' marks
     table = np.full((len(rows), ph, pw, c), -1, np.int64)
-    edges = []
+    edges, spec_k = [], []
     for k, q in enumerate(rows):
         bi, r = divmod(q, p)
         he, we = _roi_edges(rois[bi, r], ph, pw, h, w, flavor)
         edges.append((he, we))
+        mask = 0
         for i, (hlo, hhi) in enumerate(he):
+            sh = min(hlo, h - span_h)
+            out = cnt[bi, sh + span_h] > cnt[bi, sh]
+            empty_nf = any((hhi <= hlo or whi <= wlo)
+                           and not np.isfinite(flat[q, i, j]).all()
+                           for j, (wlo, whi) in enumerate(we))
+            mask |= (out or empty_nf) << i
             for j, (wlo, whi) in enumerate(we):
-                if hhi <= hlo or whi <= wlo:
-                    continue
-                best = None
-                for x in range(wlo, whi):
-                    col = rank[bi, hlo:hhi, x]                  # [rows, C]
-                    ch = hlo + np.argmax(col, axis=0)            # first max
-                    cm = col.max(axis=0)
-                    if best is None:
-                        best, bh, bw = cm, ch, np.full(c, x)
-                    else:
-                        up = cm > best
-                        best = np.where(up, cm, best)
-                        bh = np.where(up, ch, bh)
-                        bw = np.where(up, x, bw)
-                table[k, i, j] = bh * w + bw
+                nonempty = hhi > hlo and whi > wlo
+                if nonempty and not out:
+                    best = None
+                    for x in range(wlo, whi):
+                        # a bin taller than the window is cut at its end
+                        col = rank[bi, hlo:min(hhi, sh + span_h), x]
+                        ch = hlo + np.argmax(col, axis=0)        # first max
+                        cm = col.max(axis=0)
+                        if best is None:
+                            best, bh, bw = cm, ch, np.full(c, x)
+                        else:
+                            up = cm > best
+                            best = np.where(up, cm, best)
+                            bh = np.where(up, ch, bh)
+                            bw = np.where(up, x, bw)
+                    table[k, i, j] = bh * w + bw
+                elif nonempty or not np.isfinite(flat[q, i, j]).all():
+                    # per four channels in the kernel; all C at once here
+                    table[k, i, j] = _route_window(rank, bi, sh, span_h, hlo,
+                                                   hhi, wlo, whi)
+        spec_k.append(mask)
     # 4: the gather, per cell, chunks of listed rows carried in dfeat
     dfeat = np.zeros((b_n, h, w, c), F32)
     for bi in range(b_n):
@@ -406,20 +474,24 @@ def roi_bwd_schedule(feat, rois, g, ph=7, pw=7, flavor="gpu", bf16=False,
                     acc = dfeat[bi, y, x].copy()
                     for k in range(base, min(base + chunk, starts[bi + 1])):
                         he, we = edges[k]
+                        act = blk_active[rows[k]]
                         for i, (hlo, hhi) in enumerate(he):
-                            if hlo > y:
-                                break
-                            if y >= hhi:
+                            wide = spec_k[k] >> i & 1
+                            if wide:
+                                sh = min(hlo, h - span_h)
+                                if not sh <= y < sh + span_h:
+                                    continue
+                            elif not hlo <= y < hhi:
                                 continue
                             s = np.zeros(c, F32)
                             for j, (wlo, whi) in enumerate(we):
-                                if wlo > x:
-                                    break
-                                if x >= whi:
+                                if not wide and not wlo <= x < whi:
                                     continue
-                                hit = table[k, i, j] == y * w + x
-                                s = np.where(hit, s + g.reshape(
-                                    b_n * p, ph, pw, c)[rows[k], i, j], s)
+                                hit = (table[k, i, j] == y * w + x) & act
+                                gv = flat[rows[k], i, j]
+                                if hhi <= hlo or whi <= wlo:
+                                    gv = gv * F32(0.0)
+                                s = np.where(hit, s + gv, s)
                             acc = acc + s
                     dfeat[bi, y, x] = acc
     return dfeat
@@ -435,7 +507,8 @@ def _pallas_dfeat(feat, rois, g, flavor="gpu"):
     return np.stack(out)
 
 
-def _check_bwd(feat, rois, g, flavor="gpu", bf16=False, pallas=True):
+def _check_bwd(feat, rois, g, flavor="gpu", bf16=False, pallas=True,
+               nonzero=True):
     got = roi_bwd_schedule(feat, rois, g, flavor=flavor, bf16=bf16)
     plain = roi_pool_grad_bf16 if bf16 else roi_pool_grad
     tg = torch.from_numpy(g)
@@ -447,7 +520,7 @@ def _check_bwd(feat, rois, g, flavor="gpu", bf16=False, pallas=True):
         np.testing.assert_array_equal(
             want, _pallas_dfeat(_bf16(feat) if bf16 else feat, rois, g,
                                 flavor))
-    assert (got != 0).any()
+    assert (got != 0).any() == nonzero
     return got
 
 
@@ -509,3 +582,61 @@ def test_roi_bwd_schedule_ties(rng, bf16):
     g = np.ones((2, 9, 49 * 4), F32)
     got = _check_bwd(feat, rois, g, bf16=bf16)
     assert set(np.unique(got).tolist()) <= set(float(k) for k in range(500))
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_roi_bwd_schedule_nan_in_map(rng, bf16):
+    """NaNs in bins, in a window below a bin, outside every ROI's columns
+    inside a window's rows, and in a row no window reads: the marked rows'
+    cells leave their bins (and ROIs); the gather's footprint follows."""
+    feat, rois = _batch(rng)
+    feat = np.maximum(feat, 0)
+    feat[0, 3, 4, 1] = np.nan
+    feat[0, 7, 14, 2] = np.nan
+    feat[1, 0, 0, 0] = np.nan
+    feat[1, 6, 2:5, 3] = np.nan
+    g = rng.randn(2, 9, 49 * 4).astype(F32)
+    if bf16:
+        g = _bf16(g)
+    got = _check_bwd(feat, rois, g, bf16=bf16)
+    assert np.isfinite(got).all()
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_roi_bwd_schedule_infinities(rng, bf16):
+    """-inf in bins (a whole column of one), +inf and values past 2^96
+    outside them: route_window's rows."""
+    feat, rois = _batch(rng)
+    feat[0, 2:6, 3, 0] = -np.inf
+    feat[0, 5, 9, 1] = np.inf
+    feat[1, 4, 4, 2] = 4e30
+    feat[1, 8, 1, 3] = -4e30
+    g = rng.randn(2, 9, 49 * 4).astype(F32)
+    if bf16:
+        g = _bf16(g)
+    _check_bwd(feat, rois, g, bf16=bf16)
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_roi_bwd_schedule_nonfinite_cotangent(rng, bf16):
+    """C = 512 (two f32 channel blocks): NaN cotangents in some ROIs' blocks
+    (skipped by the f32 kernel, listed by the bf16 one), inf in empty and
+    non-empty bins; then a fully NaN cotangent."""
+    rng = np.random.RandomState(5)
+    feat = np.maximum(rng.randn(2, 6, 7, 512), 0).astype(F32)
+    rois = np.array([[[16, 16, 90, 80], [-200, -120, 40, 30],
+                      [20, 10, 300, 200]]] * 2, F32)
+    g = rng.randn(2, 3, 49 * 512).astype(F32)
+    g4 = g.reshape(2, 3, 7, 7, 512)
+    g4[0, 0, 3, 3, 300] = np.nan
+    g4[1, 2, 1, 5, 7] = np.nan
+    g4[0, 1, 0, 0, 2] = np.inf
+    g4[1, 1, 6, 6, 3] = np.inf
+    g4[1, 0, 2, 2, 5] = -np.inf
+    if bf16:
+        g = _bf16(g)
+    got = _check_bwd(feat, rois, g, bf16=bf16, pallas=False)
+    assert np.isnan(got).any()
+    g[:] = np.nan
+    got = _check_bwd(feat, rois, g, bf16=bf16, pallas=False, nonzero=bf16)
+    assert np.isnan(got).any() == bf16

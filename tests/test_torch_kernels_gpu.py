@@ -549,3 +549,85 @@ def test_stem_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         vgg_stem_fused(x, w1.permute(0, 1, 3, 2), b, w2, b)
     with pytest.raises(ValueError, match="chunking"):
         vgg_conv2_pool(torch.zeros(1, 16, 24, 64, device=cuda), w2, b)
+
+
+def _same_with_nans(got, want):
+    nan = want.isnan()
+    return bool(torch.equal(got.isnan(), nan)) and bool(
+        torch.equal(got.masked_fill(nan, 0), want.masked_fill(nan, 0)))
+
+
+def _nan_case(case, rng, b, p, h, w, c):
+    """(feat, rois, g) with the NaNs (or infinities) of one backward case;
+    ROIs 0..3 of each image carry them, and the cotangent is MIL-sparse
+    (ROI 0 of each image) for p >= 1000, dense otherwise."""
+    feat = np.maximum(rng.randn(b, h, w, c), 0).astype(np.float32)
+    rois = _rois(rng, b, p, h, w)
+    rois[:, 1] = [-200, -120, 60, 40]          # bins off the map: empty
+    g = rng.randn(b, p, 49 * c).astype(np.float32)
+    if p >= 1000:
+        g[:, 1:] = 0.0
+    q = np.floor(rois * np.float32(1 / 16) + np.float32(0.5)).astype(int)
+    for bi in range(b):
+        for r in (0, 2, 3):
+            x1, y1, x2, y2 = (int(v) for v in q[bi, r])
+            x1, y1 = min(max(x1, 0), w - 1), min(max(y1, 0), h - 1)
+            x2, y2 = min(max(x2, x1), w - 1), min(max(y2, y1), h - 1)
+            ch = rng.randint(c)
+            if case == "in_bins":
+                feat[bi, (y1 + y2) // 2, (x1 + x2) // 2, ch] = np.nan
+            elif case == "below_bins":
+                feat[bi, min(y1 + max((y2 - y1) // 7, 1) + 1, h - 1), x1,
+                     ch] = np.nan
+            elif case == "outside_columns":
+                x = x2 + 2 if x2 + 2 < w else x1 - 2
+                if x >= 0:
+                    feat[bi, y1, x, ch] = np.nan
+            elif case == "infinities":
+                feat[bi, y1:y2 + 1, x1, ch] = -np.inf
+                feat[bi, y1, x2, (ch + 1) % c] = np.inf
+                feat[bi, y2, x1, (ch + 2) % c] = 3e30
+            elif case == "g_some_rois":
+                g[bi, r, rng.randint(49) * c + ch] = np.nan
+                g[bi, 1, rng.randint(49) * c + ch] = np.inf
+    if case == "g_all":
+        g[:] = np.nan
+    return feat, rois, g
+
+
+@pytest.mark.parametrize("case", ["in_bins", "below_bins", "outside_columns",
+                                  "infinities", "g_some_rois", "g_all"])
+@pytest.mark.parametrize("shape", [(2, 9, 12, 15, 8), (1, 128, 38, 56, 512),
+                                   (2, 2000, 38, 56, 512)])
+@pytest.mark.parametrize("bf16", [False, True])
+def test_roi_pool_backward_kernel_nan_routing(cuda, case, shape, bf16):
+    """Both backward kernels route NaNs and infinities as their plain
+    versions do, which follow the Pallas kernels: a NaN in a bin row's
+    window (even outside the bin or the ROI) takes the bin; an f32 channel
+    block with a NaN cotangent is skipped; the bf16 kernel lists it; an
+    empty bin's non-finite cotangent lands over its row's window.  The
+    same NaN positions, equal values elsewhere."""
+    b, p, h, w, c = shape
+    rng = np.random.RandomState(p + len(case))
+    feat, rois, g = (torch.from_numpy(a).to(cuda)
+                     for a in _nan_case(case, rng, b, p, h, w, c))
+    kernel = roi_pool_fc_backward_bf16 if bf16 else roi_pool_fc_backward
+    plain = roi_pool_grad_bf16 if bf16 else roi_pool_grad
+    if bf16:
+        g = g.to(torch.bfloat16)
+    got = kernel(feat, rois, g)
+    want = plain(feat, rois, g)
+    torch.cuda.synchronize()
+    assert _same_with_nans(got, want)
+    if case == "g_all":
+        assert want.isnan().any() == bf16
+
+
+def test_native_host_library_loads(cuda):
+    """The port's native host runtime builds with the machine's g++ and
+    loads (the evaluation path's resize, rotation and per-class NMS)."""
+    from wssdl_bus_tpu_torch import native
+
+    assert native.available()
+    dets = np.array([[0, 0, 10, 10, 0.9], [1, 1, 10, 10, 0.8]], np.float32)
+    assert native.nms(dets, 0.5) == [0]

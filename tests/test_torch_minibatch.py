@@ -5,27 +5,31 @@ files as the real path reads them.
 
 The draw stream must be identical: the generators' states after two
 batches, and the GT boxes, extents and scales (which depend on the crops
-and scale draws), are compared exactly.  Pixels get a tolerance: the port
-resizes with PIL and rotates with ``scipy.ndimage.rotate``, the JAX package
-with its native C++ kernels when they are built.  Unrotated images agree to
-1e-4 (x255 units, summation order of the resize); rotated weak images
-differ on a ring of about one pixel at the image edge, where the two
-rotations treat the source image's boundary differently (up to 0.5 in
-[0, 1] units).  After a rotation of up to 5 degrees that boundary runs
-within ~9 px of the output edge (~12 px after the resize), so the test
-holds the pixels 16 px inside the edge to 0.1, and at most 3% of all
-pixels may differ by more: the mean the contrast pivots on moves by ~2e-4
-with the ring."""
+and scale draws), are compared exactly.  Pixels: both packages resize and
+rotate through the same native C++ kernels (the port's ``native/`` is its
+own copy of the JAX package's source) when both libraries build, and then
+every pixel must be equal.  Where they do not build, the port resizes with
+PIL and rotates with ``scipy.ndimage.rotate``, and the pixels get a
+tolerance: unrotated images agree to 1e-4 (x255 units, summation order of
+the resize); rotated weak images differ on a ring of about one pixel at
+the image edge, where the two rotations treat the source image's boundary
+differently (up to 0.5 in [0, 1] units).  After a rotation of up to 5
+degrees that boundary runs within ~9 px of the output edge (~12 px after
+the resize), so the test then holds the pixels 16 px inside the edge to
+0.1, and at most 3% of all pixels may differ by more: the mean the
+contrast pivots on moves by ~2e-4 with the ring."""
 
 import numpy as np
 import pytest
 from PIL import Image
 
+from wssdl_bus_tpu import native as jax_native
 from wssdl_bus_tpu.config import Config as JaxConfig
 from wssdl_bus_tpu.data.augment import max_canvas as jax_max_canvas
 from wssdl_bus_tpu.data.minibatch import get_minibatch as jax_minibatch
 from wssdl_bus_tpu.data.minibatch import \
     get_minibatch_joint as jax_minibatch_joint
+from wssdl_bus_tpu_torch import native
 from wssdl_bus_tpu_torch.config import Config
 from wssdl_bus_tpu_torch.data.augment import max_canvas
 from wssdl_bus_tpu_torch.data.minibatch import (get_minibatch,
@@ -67,7 +71,9 @@ def _check_batch(got, want, n_s, border=16):
     for i, info in enumerate(want["im_info"]):
         h, w = int(info[0]), int(info[1])
         g, ww = got["data"][i, :h, :w], want["data"][i, :h, :w]
-        if i < n_s:
+        if jax_native.available() and native.available():
+            np.testing.assert_array_equal(g, ww)
+        elif i < n_s:
             np.testing.assert_allclose(g, ww, rtol=0, atol=1e-4)
         else:
             inner = (slice(border, h - border), slice(border, w - border))

@@ -64,10 +64,21 @@
 //     the bin whose column maximum (over the bin's rows) equals the bin
 //     maximum, h* the first row of the bin attaining that column maximum;
 //     g[r, i, j, c] goes to dfeat[b, h*, w*, c] whole; empty bins add
-//     nothing;
+//     nothing.  That holds while the bin row's window (the h / 7 + 2 map
+//     rows from min(lo, h - span) the Pallas kernels read, masked by adding
+//     -1e30 outside the bin) holds no NaN and no value past +-2^96.  Where
+//     it does, the routing is the Pallas kernels' literally: per column the
+//     first NaN-or-max row of the window, then over all w columns the first
+//     NaN-or-max (jnp.argmax takes the first NaN): a NaN takes the bin's
+//     cotangent wherever it lies in the window, outside the bin or the ROI.
+//     An empty bin's non-finite cotangent (times 0: NaN) lands likewise.
+//     A first pass flags the map rows that hold such values; only the bin
+//     rows whose window holds one pay for the wide routing and gather;
 //   * a ROI whose whole cotangent row is zero adds nothing and is skipped
 //     (in the weak group only the MIL-selected ROI of each bag has a
-//     nonzero row: about 1 of 2000);
+//     nonzero row: about 1 of 2000); the f32 kernel skips it per channel
+//     block of 256 channels, also where the block holds a NaN (the Pallas
+//     kernel's sum(|g|) > 0 is then false);
 //   * the order of sums, per cell: ROIs ascending; within a ROI, bin rows i
 //     ascending; within a row, the cotangents of the bins whose chosen cell
 //     it is, summed in j order first (ops/roi_pool.py:roi_pool_grad).
@@ -81,9 +92,10 @@
 // grid, and its first port walked the ROIs serially in one block per
 // (image, 4 channels): 128 blocks, the sums on 4 threads of 256.  This
 // design is a deterministic gather in four launches, exact by construction,
-// no atomics, every one parallel over thousands of threads:
-//   1. roi_rows_active_kernel: one block per cotangent row flags the rows
-//      with a nonzero (or NaN) entry: the coalesced read of all of g;
+// no atomics on the sums, every one parallel over thousands of threads:
+//   1. roi_rows_scan_kernel: one block per cotangent row flags the rows
+//      (and the f32 channel blocks) to list: the coalesced read of all of
+//      g; one block per map row flags the rows that hold a NaN;
 //   2. roi_rows_compact_kernel: one block compacts the flagged rows into an
 //      ascending list with each image's first position, on the device, so
 //      the later passes see a dense list without a host sync;
@@ -188,14 +200,6 @@ __device__ __forceinline__ void from_float4(float4 m, uint2* out) {
                     *reinterpret_cast<const unsigned*>(&hi));
 }
 
-__device__ __forceinline__ bool any_nonzero(float4 v) {
-  return (v.x != 0.f) | (v.y != 0.f) | (v.z != 0.f) | (v.w != 0.f);
-}
-
-__device__ __forceinline__ bool any_nonzero(uint2 v) {
-  return ((v.x | v.y) & 0x7fff7fffu) != 0u;   // != +-0, NaN included
-}
-
 // bf16(v) in f32, to nearest, ties to even; the identity for kRound false.
 template <bool kRound>
 __device__ __forceinline__ float4 route_value(float4 v) {
@@ -204,6 +208,45 @@ __device__ __forceinline__ float4 route_value(float4 v) {
                      __bfloat162float(__float2bfloat16_rn(v.y)),
                      __bfloat162float(__float2bfloat16_rn(v.z)),
                      __bfloat162float(__float2bfloat16_rn(v.w)));
+}
+
+// The first pass's tests of one cotangent vector, on the bits: any entry
+// nonzero (NaN included), any not finite, any NaN.
+struct GFlags {
+  bool nonzero, nonfinite;
+};
+
+__device__ __forceinline__ GFlags gflags(float4 v) {
+  const unsigned a = __float_as_uint(v.x) & 0x7fffffffu;
+  const unsigned b = __float_as_uint(v.y) & 0x7fffffffu;
+  const unsigned c = __float_as_uint(v.z) & 0x7fffffffu;
+  const unsigned d = __float_as_uint(v.w) & 0x7fffffffu;
+  return {(a | b | c | d) != 0u, max(max(a, b), max(c, d)) >= 0x7f800000u};
+}
+
+__device__ __forceinline__ GFlags gflags(uint2 v) {
+  const unsigned e = 0x7f800000u, e16 = 0x7f80u;
+  return {((v.x | v.y) & 0x7fff7fffu) != 0u,
+          (v.x & e) == e || (v.x & e16) == e16 || (v.y & e) == e ||
+              (v.y & e16) == e16};
+}
+
+__device__ __forceinline__ bool any_nan(float4 v) {
+  return isnan(v.x) | isnan(v.y) | isnan(v.z) | isnan(v.w);
+}
+
+__device__ __forceinline__ bool all_finite(float4 v) {
+  return isfinite(v.x) & isfinite(v.y) & isfinite(v.z) & isfinite(v.w);
+}
+
+// A map value near which the backward's routing may leave a bin: a NaN
+// (the Pallas argmax takes the first NaN), or a value beyond +-2^96, where
+// the -1e30 the Pallas kernels add outside a bin no longer ranks every
+// outside cell below every inside one.
+__device__ __forceinline__ bool routes_out(float4 v) {
+  const float kLimit = 7.9228162514264338e28f;   // 2^96
+  return any_nan(v) | (fabsf(v.x) > kLimit) | (fabsf(v.y) > kLimit) |
+         (fabsf(v.z) > kLimit) | (fabsf(v.w) > kLimit);
 }
 
 // The direct path: one block per (ROI, bin), threads over four-channel
@@ -404,31 +447,157 @@ __global__ void __launch_bounds__(kFwdThreads)
   }
 }
 
-// One block per cotangent row (b * p + roi): active[row] = 1 if any of
-// its `row4` four-channel vectors has a nonzero (or NaN) entry.
-template <typename GVec>
-__global__ void roi_rows_active_kernel(const GVec* __restrict__ g, int row4,
-                                       int* __restrict__ active) {
-  const GVec* row = g + (size_t)blockIdx.x * row4;
-  int any = 0;
-  for (int k = threadIdx.x; k < row4; k += blockDim.x)
-    any |= any_nonzero(row[k]);
-  any = __syncthreads_or(any);
-  if (threadIdx.x == 0) active[blockIdx.x] = any;
+// Blocks a map row in the first pass: the map's read spread over as many
+// blocks as the cotangent's, so neither part waits on the other.
+constexpr int kMapParts = 4;
+
+// The first pass, over the cotangent and the map.
+// Blocks [0, rows), one per cotangent row q = b * p + roi:
+//   * active[q] = 1 when the row is listed.  kBlocks (the f32 kernel,
+//     _bwd_kernel): when a channel block of cb4 four-channel vectors has a
+//     nonzero entry and no NaN (its sum(|g|) > 0), each such block flagged
+//     in blk_active[q * nblk + blk]; channels past nblk blocks never count.
+//     Else (bf16, _fc_bwd_kernel): when any entry is nonzero or NaN.
+//   * gspec[q]: bit i set when an empty bin of bin row i has a non-finite
+//     entry: g * 0 is then NaN, and the Pallas kernels add it at a cell
+//     chosen over the bin row's whole window, outside the ROI.
+// Blocks [rows, rows + batch * h * kMapParts), kMapParts a map row (b, y):
+// rowflag[(b * h + y) * kMapParts + part] = 1 when that part of the row
+// holds a value that routes_out (after route_value).
+template <typename GVec, bool kBlocks, bool kRound>
+__global__ void roi_rows_scan_kernel(const GVec* __restrict__ g,
+                                     const float4* __restrict__ feat,
+                                     const float* __restrict__ rois,
+                                     int rows, int h, int w, int c4,
+                                     int pooled_h, int pooled_w,
+                                     float spatial_scale, int flavor,
+                                     int cb4, int nblk,
+                                     int* __restrict__ active,
+                                     unsigned char* __restrict__ blk_active,
+                                     int* __restrict__ gspec,
+                                     int* __restrict__ rowflag) {
+  __shared__ unsigned s_nz[32], s_nan[32];
+  __shared__ unsigned long long s_nf[32];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  if ((int)blockIdx.x >= rows) {
+    // kMapParts blocks a map row, each a contiguous part of it
+    const int by = (blockIdx.x - rows) / kMapParts;
+    const int part = (blockIdx.x - rows) % kMapParts;
+    const int n = w * c4, k0 = n * part / kMapParts;
+    const int k1 = n * (part + 1) / kMapParts;
+    const float4* row = feat + (size_t)by * n;
+    int any = 0;
+#pragma unroll 4
+    for (int k = k0 + tid; k < k1; k += blockDim.x)
+      any |= routes_out(route_value<kRound>(row[k]));
+    any = __syncthreads_or(any);
+    if (tid == 0) rowflag[by * kMapParts + part] = any;
+    return;
+  }
+  const int q = blockIdx.x;
+  const int nb = pooled_h * pooled_w;
+  const GVec* gr = g + (size_t)q * nb * c4;
+  // nf: the bins with a non-finite entry (bit min(bin, 63)); which of them
+  // are empty is worked out only when there is one
+  unsigned nz = 0u, nan = 0u;
+  unsigned long long nf = 0ull;
+  // k = bin * c4 + cg, carried from one k to the next (k += blockDim.x)
+  // without divisions; the channel block changes only when cg does (never
+  // where c4 divides blockDim.x)
+  const int step_bins = blockDim.x / c4, step_cg = blockDim.x % c4;
+  int cg = tid % c4, bin = tid / c4;
+  int blk = kBlocks ? cg / cb4 : 0;
+#pragma unroll 4
+  for (int k = tid; k < nb * c4; k += blockDim.x) {
+    const GVec v = gr[k];
+    const GFlags fl = gflags(v);
+    const unsigned bit = 1u << blk;
+    if (fl.nonzero) nz |= bit;
+    if (fl.nonfinite) {
+      nf |= 1ull << min(bin, 63);
+      if (kBlocks && any_nan(to_float4(v))) nan |= bit;
+    }
+    cg += step_cg;
+    bin += step_bins;
+    if (cg >= c4) {
+      cg -= c4;
+      ++bin;
+    }
+    if (kBlocks && step_cg) blk = cg / cb4;
+  }
+  nz = __reduce_or_sync(0xffffffffu, nz);
+  nan = __reduce_or_sync(0xffffffffu, nan);
+  const unsigned nf_lo = __reduce_or_sync(0xffffffffu, (unsigned)nf);
+  const unsigned nf_hi = __reduce_or_sync(0xffffffffu, (unsigned)(nf >> 32));
+  if (lane == 0) {
+    s_nz[warp] = nz;
+    s_nan[warp] = nan;
+    s_nf[warp] = (unsigned long long)nf_hi << 32 | nf_lo;
+  }
+  __syncthreads();
+  if (tid == 0) {
+    unsigned act = 0u, nans = 0u;
+    unsigned long long bins_nf = 0ull;
+    for (int k = 0; k < (int)(blockDim.x >> 5); ++k) {
+      act |= s_nz[k];
+      nans |= s_nan[k];
+      bins_nf |= s_nf[k];
+    }
+    if (kBlocks) {
+      act &= ~nans & ((1u << nblk) - 1u);
+      for (int k = 0; k < nblk; ++k)
+        blk_active[(size_t)q * nblk + k] = (act >> k) & 1u;
+    }
+    active[q] = act != 0u;
+    int spec = 0;
+    if (bins_nf) {
+      const float* roi = rois + (size_t)q * 4;
+      const int rsw = quantize(roi[0], spatial_scale);
+      const int rsh = quantize(roi[1], spatial_scale);
+      const int roi_w = max(quantize(roi[2], spatial_scale) - rsw + 1, 1);
+      const int roi_h = max(quantize(roi[3], spatial_scale) - rsh + 1, 1);
+      for (int b2 = 0; b2 < nb; ++b2) {
+        if (!(bins_nf >> min(b2, 63) & 1ull)) continue;
+        const int i = b2 / pooled_w, j = b2 - i * pooled_w;
+        int hlo, hhi, wlo, whi;
+        bin_edges(i, rsh, roi_h, pooled_h, h, flavor, &hlo, &hhi);
+        bin_edges(j, rsw, roi_w, pooled_w, w, flavor, &wlo, &whi);
+        if (hhi <= hlo || whi <= wlo) spec |= 1 << i;
+      }
+    }
+    gspec[q] = spec;
+  }
 }
 
 // One block of 1024 threads: the flagged rows of all images, compacted in
 // ascending order into list[0 .. total), and img_start[b] = the position of
 // image b's first listed row (img_start[batch] = total).  Launched even for
 // p == 0, so that the later passes read valid counts without a host sync.
+// Also, a warp per image, cnt[b * (h + 1) + y] = the number of map rows
+// above y that rowflag marks, so a window's rows are tested in two reads.
 __global__ void __launch_bounds__(1024)
     roi_rows_compact_kernel(const int* __restrict__ active, int batch, int p,
+                            const int* __restrict__ rowflag, int h,
                             int* __restrict__ list,
-                            int* __restrict__ img_start) {
+                            int* __restrict__ img_start,
+                            int* __restrict__ cnt) {
   __shared__ int warp_n[32];
   __shared__ int s_base, s_chunk;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int rows = batch * p;
+  for (int b = warp; rows > 0 && b < batch; b += blockDim.x >> 5) {
+    int run = 0;
+    for (int y0 = 0; y0 < h; y0 += 32) {
+      const int y = y0 + lane;
+      int f = 0;
+      for (int part = 0; y < h && part < kMapParts; ++part)
+        f |= rowflag[(b * h + y) * kMapParts + part];
+      const unsigned bal = __ballot_sync(0xffffffffu, f);
+      if (y < h) cnt[b * (h + 1) + y] = run + __popc(bal & ((1u << lane) - 1u));
+      run += __popc(bal);
+    }
+    if (lane == 0) cnt[b * (h + 1) + h] = run;
+  }
   if (tid == 0) s_base = 0;
   if (p == 0)
     for (int b = tid; b <= batch; b += blockDim.x) img_start[b] = 0;
@@ -471,21 +640,82 @@ __device__ __forceinline__ int4 load_cells(const short4* p) {
 }
 __device__ __forceinline__ int4 load_cells(const int4* p) { return *p; }
 
+// The argmax pass's blocks: at most 128 threads, seven blocks an SM (at
+// most 72 registers a thread).
+constexpr int kArgmaxThreads = 128;
+constexpr int kArgmaxBlocks = 7;
+
+// NaN-first ranking, as jnp.argmax: v beats best when it is larger, or a
+// NaN where best is not; ties (two NaNs included) keep the earlier.
+__device__ __forceinline__ bool beats(float v, float best) {
+  return v > best || (isnan(v) && !isnan(best));
+}
+
+__device__ __forceinline__ float4 add4(float4 v, float o) {
+  return make_float4(__fadd_rn(v.x, o), __fadd_rn(v.y, o), __fadd_rn(v.z, o),
+                     __fadd_rn(v.w, o));
+}
+
+// The Pallas kernels' routing, literally: bin row i reads the span_h map
+// rows from sh, each masked by adding -1e30 outside [hlo, hhi); per column
+// the first (NaN-first) max row; then over all w columns, masked by adding
+// -1e30 outside [wlo, whi), the first (NaN-first) max column.  -> the four
+// channels' cells h* * w + w*, anywhere in the window's rows.
+template <bool kRound>
+__device__ int4 route_window(const float4* fb, int cg, int c4, int w, int sh,
+                             int span_h, int hlo, int hhi, int wlo, int whi) {
+  const float kOut = -1e30f;
+  float4 best = make_float4(0.f, 0.f, 0.f, 0.f);
+  int4 bh = make_int4(0, 0, 0, 0), bw = bh;
+  for (int x = 0; x < w; ++x) {
+    float4 cm = make_float4(0.f, 0.f, 0.f, 0.f);
+    int4 ch = make_int4(sh, sh, sh, sh);
+    for (int y = sh; y < sh + span_h; ++y) {
+      const float4 v =
+          add4(route_value<kRound>(fb[((size_t)y * w + x) * c4 + cg]),
+               y >= hlo && y < hhi ? 0.f : kOut);
+      if (y == sh) { cm = v; continue; }
+      if (beats(v.x, cm.x)) { cm.x = v.x; ch.x = y; }
+      if (beats(v.y, cm.y)) { cm.y = v.y; ch.y = y; }
+      if (beats(v.z, cm.z)) { cm.z = v.z; ch.z = y; }
+      if (beats(v.w, cm.w)) { cm.w = v.w; ch.w = y; }
+    }
+    cm = add4(cm, x >= wlo && x < whi ? 0.f : kOut);
+    const bool first = x == 0;
+    if (first || beats(cm.x, best.x)) { best.x = cm.x; bh.x = ch.x; bw.x = x; }
+    if (first || beats(cm.y, best.y)) { best.y = cm.y; bh.y = ch.y; bw.y = x; }
+    if (first || beats(cm.z, best.z)) { best.z = cm.z; bh.z = ch.z; bw.z = x; }
+    if (first || beats(cm.w, best.w)) { best.w = cm.w; bh.w = ch.w; bw.w = x; }
+  }
+  return make_int4(bh.x * w + bw.x, bh.y * w + bw.y, bh.z * w + bw.z,
+                   bh.w * w + bw.w);
+}
+
 // The argmax pass: for each (listed row k, bin) and four channels, the cell
-// h*·W + w* the bin's cotangent goes to (the first column of the bin whose
-// column maximum is the bin maximum, the first row attaining it), ranking
-// route_value<kRound>(feat).  Grid-stride over the total(k) x bin items,
-// whose count only the device knows; threads over channels, so a warp reads
-// each window cell as 512 contiguous bytes, as the forward does.
-template <typename Cell4, bool kRound>
-__global__ void roi_argmax_kernel(const float4* __restrict__ feat,
-                                  const float* __restrict__ rois,
-                                  const int* __restrict__ list,
-                                  const int* __restrict__ img_start,
-                                  int batch, int p, int h, int w, int c4,
-                                  int pooled_h, int pooled_w,
-                                  float spatial_scale, int flavor,
-                                  Cell4* __restrict__ table) {
+// h*·W + w* the bin's cotangent goes to, ranking route_value<kRound>(feat).
+// Where no map row of the bin row's window routes_out (cnt), that is the
+// first column of the bin whose column maximum is the bin maximum and the
+// first row attaining it, read from the bin alone; else route_window.  An
+// empty bin gets -1, or route_window's cell when its cotangent is not
+// finite (gspec, then the entry).  Every listed row's cells are written,
+// also those of an f32 channel block the row does not list (the gather
+// skips them).  The item (k, bin 0) also writes spec_k[k]: bit i for each
+// bin row whose cells may lie outside the ROI (a window row that
+// routes_out, or gspec).  Grid-stride over the total(k) x bin items, whose
+// count only the device knows; threads over channels, so a warp reads each
+// window cell as 512 contiguous bytes, as the forward does.
+template <typename GVec, typename Cell4, bool kRound>
+__global__ void __launch_bounds__(kArgmaxThreads, kArgmaxBlocks)
+    roi_argmax_kernel(const float4* __restrict__ feat,
+                      const float* __restrict__ rois,
+                      const GVec* __restrict__ g,
+                      const int* __restrict__ list,
+                      const int* __restrict__ img_start,
+                      const int* __restrict__ gspec,
+                      const int* __restrict__ cnt, int batch, int p, int h,
+                      int w, int c4, int pooled_h, int pooled_w,
+                      float spatial_scale, int flavor, int span_h,
+                      int* __restrict__ spec_k, Cell4* __restrict__ table) {
   const int nb = pooled_h * pooled_w;
   const long long total = (long long)img_start[batch] * nb;
   for (long long item = blockIdx.x; item < total; item += gridDim.x) {
@@ -505,19 +735,29 @@ __global__ void roi_argmax_kernel(const float4* __restrict__ feat,
     int hlo, hhi, wlo, whi;
     bin_edges(i, rsh, roi_h, pooled_h, h, flavor, &hlo, &hhi);
     bin_edges(j, rsw, roi_w, pooled_w, w, flavor, &wlo, &whi);
+    const int* cb = cnt + (size_t)b * (h + 1);
+    const int sh = min(hlo, h - span_h);
+    const int hend = min(hhi, sh + span_h);
+    // the routing decision's loads; the bin's scan below runs without
+    // waiting for them, and is redone over the window where they say so
+    const bool window_out = cb[sh + span_h] > cb[sh];
+    const int gs = gspec[row];
+    const bool nonempty = hhi > hlo && whi > wlo;
     const float4* fb = feat + (size_t)b * h * w * c4;
     Cell4* out = table + ((size_t)k * nb + bin) * c4;
     for (int cg = threadIdx.x; cg < c4; cg += blockDim.x) {
       int4 cell = make_int4(-1, -1, -1, -1);
-      if (hhi > hlo && whi > wlo) {
+      if (nonempty) {
         float4 best = make_float4(0.f, 0.f, 0.f, 0.f);
         int4 bh = make_int4(0, 0, 0, 0), bw = bh;
         for (int x = wlo; x < whi; ++x) {
-          // column max over the bin's rows, and its first row
+          // column max over the bin's rows inside the window, and its first
+          // row (a bin taller than the window, of a ROI taller than the
+          // map, is cut at the window's end, as in the Pallas kernels)
           float4 cm =
               route_value<kRound>(fb[((size_t)hlo * w + x) * c4 + cg]);
           int4 ch = make_int4(hlo, hlo, hlo, hlo);
-          for (int y = hlo + 1; y < hhi; ++y) {
+          for (int y = hlo + 1; y < hend; ++y) {
             const float4 v =
                 route_value<kRound>(fb[((size_t)y * w + x) * c4 + cg]);
             if (v.x > cm.x) { cm.x = v.x; ch.x = y; }
@@ -535,7 +775,23 @@ __global__ void roi_argmax_kernel(const float4* __restrict__ feat,
         cell = make_int4(bh.x * w + bw.x, bh.y * w + bw.y, bh.z * w + bw.z,
                          bh.w * w + bw.w);
       }
+      if (nonempty ? window_out
+                   : (gs >> i & 1) &&
+                         !all_finite(to_float4(
+                             g[((size_t)row * nb + bin) * c4 + cg])))
+        cell = route_window<kRound>(fb, cg, c4, w, sh, span_h, hlo, hhi, wlo,
+                                    whi);
       store_cells(cell, out + cg);
+    }
+    if (bin == 0 && threadIdx.x == 0) {
+      int mask = gs;
+      for (int ii = 0; ii < pooled_h; ++ii) {
+        int lo, hi;
+        bin_edges(ii, rsh, roi_h, pooled_h, h, flavor, &lo, &hi);
+        const int s0 = min(lo, h - span_h);
+        if (cb[s0 + span_h] > cb[s0]) mask |= 1 << ii;
+      }
+      spec_k[k] = mask;
     }
   }
 }
@@ -549,29 +805,44 @@ __device__ __forceinline__ float add_if(bool hit, float s, float v) {
   return hit ? __fadd_rn(s, v) : s;
 }
 
+__device__ __forceinline__ float4 add4(float4 a, float4 b) {
+  return make_float4(__fadd_rn(a.x, b.x), __fadd_rn(a.y, b.y),
+                     __fadd_rn(a.z, b.z), __fadd_rn(a.w, b.w));
+}
+
 // The gather pass.  Grid (tiles, channel slices of 128, batch): block
 // (tile, slice, b) owns dfeat[b, tile's cells, 128 channels] and writes it
 // once.  Lane l of a warp holds channels 4 * (32 * slice + l) .. + 3 of one
 // cell.  For each chunk of the image's listed rows (ascending), the block
-// first compacts the rows whose bins overlap its tile into shared memory,
-// with their bin edges; then each warp, for each of its cells, walks them in
-// order and adds, per bin row i (ascending) holding the cell's row, the sum
-// in j order of the cotangents of the bins j holding its column whose
+// first compacts the rows whose cells may fall in its tile into shared
+// memory, with their bin edges; then each warp, for each of its cells,
+// walks them in order and adds, per bin row i (ascending) holding the
+// cell's row, the sum in j order of the cotangents of the bins j whose
 // chosen cell it is: roi_pool_grad's order of sums for that cell.
-// Dynamic shared memory: slot[chunk], then hlo, hhi [chunk][pooled_h] and
-// wlo, whi [chunk][pooled_w] (int).
-template <typename GVec, typename Cell4>
+// kBlocks: a channel block the row does not list adds nothing.  A bin row
+// that spec_k marks may have its cells anywhere in its window rows, across
+// the whole width: it reaches the tiles of that band, and every bin of the
+// row is read, adding g * ne (ne = 0 for an empty bin: g * 0, a NaN for a
+// non-finite g).
+// Dynamic shared memory: slot[chunk], row[chunk], spec[chunk], then hlo,
+// hhi [chunk][pooled_h] and wlo, whi [chunk][pooled_w] (int).
+template <typename GVec, typename Cell4, bool kBlocks>
 __global__ void __launch_bounds__(kGatherThreads)
     roi_gather_kernel(const float* __restrict__ rois,
                       const GVec* __restrict__ g,
                       const int* __restrict__ list,
                       const int* __restrict__ img_start,
+                      const int* __restrict__ spec_k,
+                      const unsigned char* __restrict__ blk_active,
                       const Cell4* __restrict__ table, int h, int w, int c4,
                       int pooled_h, int pooled_w, float spatial_scale,
-                      int flavor, int chunk, float4* __restrict__ dfeat) {
+                      int flavor, int span_h, int cb4, int nblk, int chunk,
+                      float4* __restrict__ dfeat) {
   extern __shared__ int gsm[];
   int* slot = gsm;
-  int* hlo_s = slot + chunk;
+  int* row_s = slot + chunk;
+  int* spec_s = row_s + chunk;
+  int* hlo_s = spec_s + chunk;
   int* hhi_s = hlo_s + chunk * pooled_h;
   int* wlo_s = hhi_s + chunk * pooled_h;
   int* whi_s = wlo_s + chunk * pooled_w;
@@ -586,18 +857,21 @@ __global__ void __launch_bounds__(kGatherThreads)
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int cg = blockIdx.y * 32 + lane;
   const bool has_c = cg < c4;
+  // the block's 128 channels lie in one channel block (cb4 is c4 or 64)
+  const int blk = blockIdx.y * 32 / cb4;
   const int nb = pooled_h * pooled_w;
   const int k0 = img_start[b], k1 = img_start[b + 1];
   float4* ob = dfeat + (size_t)b * h * w * c4;
 
   bool first = true;
   for (int base = k0; first || base < k1; base += chunk) {
-    // compact this chunk's rows that overlap the tile, in ascending order
+    // compact this chunk's rows that may reach the tile, in ascending order
     const int k = base + tid;
     bool hit = false;
-    int rsw = 0, rsh = 0, roi_w = 1, roi_h = 1;
+    int rsw = 0, rsh = 0, roi_w = 1, roi_h = 1, spec = 0, row = 0;
     if (tid < chunk && k < k1) {
-      const float* roi = rois + (size_t)list[k] * 4;
+      row = list[k];
+      const float* roi = rois + (size_t)row * 4;
       rsw = quantize(roi[0], spatial_scale);
       rsh = quantize(roi[1], spatial_scale);
       roi_w = max(quantize(roi[2], spatial_scale) - rsw + 1, 1);
@@ -610,6 +884,17 @@ __global__ void __launch_bounds__(kGatherThreads)
       bin_edges(0, rsw, roi_w, pooled_w, w, flavor, &xlo, &dummy);
       bin_edges(pooled_w - 1, rsw, roi_w, pooled_w, w, flavor, &dummy, &xhi);
       hit = ylo < ty1 && yhi > ty0 && xlo < tx1 && xhi > tx0;
+      spec = spec_k[k];
+      for (int i = 0; spec && !hit && i < pooled_h; ++i) {
+        if (!(spec >> i & 1)) continue;
+        int lo;
+        bin_edges(i, rsh, roi_h, pooled_h, h, flavor, &lo, &dummy);
+        const int s0 = min(lo, h - span_h);
+        hit = s0 < ty1 && s0 + span_h > ty0;
+      }
+      // a channel block the row does not list adds nothing here
+      if (kBlocks)
+        hit = hit && blk < nblk && blk_active[(size_t)row * nblk + blk];
     }
     const unsigned bal = __ballot_sync(0xffffffffu, hit);
     if (lane == 0) warp_n[warp] = __popc(bal);
@@ -627,6 +912,8 @@ __global__ void __launch_bounds__(kGatherThreads)
     if (hit) {
       const int e = warp_n[warp] + __popc(bal & ((1u << lane) - 1u));
       slot[e] = k;
+      row_s[e] = row;
+      spec_s[e] = spec;
       for (int i = 0; i < pooled_h; ++i)
         bin_edges(i, rsh, roi_h, pooled_h, h, flavor,
                   &hlo_s[e * pooled_h + i], &hhi_s[e * pooled_h + i]);
@@ -644,34 +931,50 @@ __global__ void __launch_bounds__(kGatherThreads)
       float4* op = ob + (size_t)me * c4 + cg;
       float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
       if (!first && has_c) acc = *op;
-      for (int e = 0; e < n_list; ++e) {
+      for (int e = 0; e < n_list && has_c; ++e) {
         const int* hl = hlo_s + e * pooled_h;
         const int* hh = hhi_s + e * pooled_h;
         const int* wl = wlo_s + e * pooled_w;
         const int* wh = whi_s + e * pooled_w;
-        if (y < hl[0] || y >= hh[pooled_h - 1] || x < wl[0] ||
-            x >= wh[pooled_w - 1])
+        const int spec = spec_s[e];
+        if (!spec && (y < hl[0] || y >= hh[pooled_h - 1] || x < wl[0] ||
+                      x >= wh[pooled_w - 1]))
           continue;
-        const int kk = slot[e];
-        const Cell4* tk = table + (size_t)kk * nb * c4 + cg;
-        const GVec* gk = g + (size_t)list[kk] * nb * c4 + cg;
-        for (int i = 0; i < pooled_h && hl[i] <= y; ++i) {
-          if (y >= hh[i]) continue;
+        const Cell4* tk = table + (size_t)slot[e] * nb * c4 + cg;
+        const GVec* gk = g + (size_t)row_s[e] * nb * c4 + cg;
+        for (int i = 0; i < pooled_h; ++i) {
+          const bool wide = spec >> i & 1;
+          if (wide) {
+            // a marked bin row: its cells may lie anywhere in its window
+            const int s0 = min(hl[i], h - span_h);
+            if (y < s0 || y >= s0 + span_h) continue;
+          } else {
+            if (hl[i] > y) {
+              if (!(spec >> i)) break;   // no marked row below
+              continue;
+            }
+            if (y >= hh[i]) continue;
+          }
           float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
-          for (int j = 0; j < pooled_w && wl[j] <= x; ++j) {
-            if (x >= wh[j] || !has_c) continue;
+          for (int j = 0; j < pooled_w; ++j) {
+            if (!wide) {
+              if (wl[j] > x) break;
+              if (x >= wh[j]) continue;
+            }
             const int bin = i * pooled_w + j;
             const int4 cc = load_cells(tk + (size_t)bin * c4);
             const bool hx = cc.x == me, hy = cc.y == me, hz = cc.z == me,
                        hw = cc.w == me;
             if (hx | hy | hz | hw) {
-              const float4 gv = to_float4(gk[(size_t)bin * c4]);
+              float4 gv = to_float4(gk[(size_t)bin * c4]);
+              if (hh[i] <= hl[i] || wh[j] <= wl[j])   // g * ne, ne = 0
+                gv = make_float4(__fmul_rn(gv.x, 0.f), __fmul_rn(gv.y, 0.f),
+                                 __fmul_rn(gv.z, 0.f), __fmul_rn(gv.w, 0.f));
               s = make_float4(add_if(hx, s.x, gv.x), add_if(hy, s.y, gv.y),
                               add_if(hz, s.z, gv.z), add_if(hw, s.w, gv.w));
             }
           }
-          acc = make_float4(__fadd_rn(acc.x, s.x), __fadd_rn(acc.y, s.y),
-                            __fadd_rn(acc.z, s.z), __fadd_rn(acc.w, s.w));
+          acc = add4(acc, s);
         }
       }
       if (has_c) *op = acc;
@@ -764,64 +1067,85 @@ int launch_forward_smem(const float* feat, const float* rois, int batch,
                 tile, smem, out, stream);
 }
 
+// The f32 backward's channel block (_c_block(c, backward=True)).
+constexpr int kBwdBlock = 256;
+
 // The backward for a GVec cotangent with Cell4 argmax entries; see
-// wssdl_roi_pool_bwd.
+// wssdl_roi_pool_bwd.  The f32 instance (!kRound) lists channel blocks.
 template <typename GVec, bool kRound, typename Cell4>
 int launch_backward_cells(const float* feat, const float* rois, const void* g,
                           int batch, int h, int w, int c, int p, int pooled_h,
                           int pooled_w, float spatial_scale, int flavor,
                           int* work, void* table, float* dfeat,
                           cudaStream_t stream) {
+  constexpr bool kBlocks = !kRound;
   const int c4 = c / 4;
   const int nb = pooled_h * pooled_w;
   const int rows = batch * p;
+  const int span_h = min(h / pooled_h + 2, h);
+  const int cb4 = kBlocks ? min(c, kBwdBlock) / 4 : c4;
+  const int nblk = kBlocks ? c / min(c, kBwdBlock) : 1;
+  if (pooled_h > 31 || nblk > 31) return (int)cudaErrorInvalidValue;
   int* active = work;
-  int* list = work + rows;
-  int* img_start = work + 2 * rows;
+  int* list = active + rows;
+  int* img_start = list + rows;
+  int* gspec = img_start + batch + 1;
+  int* spec_k = gspec + rows;
+  int* rowflag = spec_k + rows;
+  int* cnt = rowflag + batch * h * kMapParts;
+  unsigned char* blk_active =
+      reinterpret_cast<unsigned char*>(cnt + batch * (h + 1));
   const GVec* gv = reinterpret_cast<const GVec*>(g);
+  const float4* fv = reinterpret_cast<const float4*>(feat);
   cudaError_t err;
   if (rows > 0) {
-    roi_rows_active_kernel<GVec><<<rows, 256, 0, stream>>>(gv, nb * c4,
-                                                           active);
+    roi_rows_scan_kernel<GVec, kBlocks, kRound>
+        <<<rows + batch * h * kMapParts, 256, 0, stream>>>(
+            gv, fv, rois, rows, h, w, c4, pooled_h, pooled_w, spatial_scale,
+            flavor, cb4, nblk, active, blk_active, gspec, rowflag);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   }
-  roi_rows_compact_kernel<<<1, 1024, 0, stream>>>(active, batch, p, list,
-                                                  img_start);
+  roi_rows_compact_kernel<<<1, 1024, 0, stream>>>(active, batch, p, rowflag,
+                                                  h, list, img_start, cnt);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   Cell4* cells = reinterpret_cast<Cell4*>(table);
   if (rows > 0) {
     int threads = ((c4 + 31) / 32) * 32;
-    threads = threads < 32 ? 32 : (threads > 256 ? 256 : threads);
+    threads = threads < 32 ? 32
+                           : (threads > kArgmaxThreads ? kArgmaxThreads
+                                                       : threads);
     const long long items = (long long)rows * nb;
     const int grid = (int)(items < 132 * 16 ? items : 132 * 16);
-    roi_argmax_kernel<Cell4, kRound><<<grid, threads, 0, stream>>>(
-        reinterpret_cast<const float4*>(feat), rois, list, img_start, batch,
-        p, h, w, c4, pooled_h, pooled_w, spatial_scale, flavor, cells);
+    roi_argmax_kernel<GVec, Cell4, kRound><<<grid, threads, 0, stream>>>(
+        fv, rois, gv, list, img_start, gspec, cnt, batch, p, h, w, c4,
+        pooled_h, pooled_w, spatial_scale, flavor, span_h, spec_k, cells);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   }
-  // the gather's shared memory: a chunk of rows' slots and bin edges
+  // the gather's shared memory: a chunk of rows' slots, marks, bin edges
   int dev = 0, optin = 0;
   if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
   if ((err = cudaDeviceGetAttribute(
            &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev)) !=
       cudaSuccess)
     return (int)err;
-  const size_t per_row = (1 + 2 * (size_t)(pooled_h + pooled_w)) * sizeof(int);
+  const size_t per_row = (3 + 2 * (size_t)(pooled_h + pooled_w)) * sizeof(int);
   // 128 rows a chunk: 15 KB at 7 x 7 bins, so eight blocks fit an SM
   int chunk = kGatherThreads / 2;
   while (chunk > 32 && chunk * per_row + 256 > (size_t)optin) chunk /= 2;
   const size_t smem = chunk * per_row;
   if (smem + 256 > (size_t)optin) return (int)cudaErrorInvalidValue;
-  err = cudaFuncSetAttribute(roi_gather_kernel<GVec, Cell4>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-  if (err != cudaSuccess) return (int)err;
   const int tiles = ((h + kGatherH - 1) / kGatherH) *
                     ((w + kGatherW - 1) / kGatherW);
   const dim3 grid(tiles, (c4 + 31) / 32, batch);
-  roi_gather_kernel<GVec, Cell4><<<grid, kGatherThreads, smem, stream>>>(
-      rois, gv, list, img_start, cells, h, w, c4, pooled_h, pooled_w,
-      spatial_scale, flavor, chunk, reinterpret_cast<float4*>(dfeat));
+  auto gather = roi_gather_kernel<GVec, Cell4, kBlocks>;
+  err = cudaFuncSetAttribute(gather,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  gather<<<grid, kGatherThreads, smem, stream>>>(
+      rois, gv, list, img_start, spec_k, blk_active, cells, h, w, c4,
+      pooled_h, pooled_w, spatial_scale, flavor, span_h, cb4, nblk, chunk,
+      reinterpret_cast<float4*>(dfeat));
   return (int)cudaGetLastError();
 }
 
@@ -884,8 +1208,11 @@ int wssdl_roi_pool_fwd_bf16(const float* feat, const float* rois, int batch,
 
 // The backward.  feat [batch, h, w, c] and rois as for the forward, g the
 // cotangent [batch, p, pooled_h, pooled_w, c] f32 (16-byte aligned), work an
-// int scratch of 2 * batch * p + batch + 1 entries (row flags, the compacted
-// row list, each image's first list position), table a scratch of
+// int scratch of 4 * batch * p + batch + 1 + batch * (5 * h + 1) +
+// ceil(batch * p * nblk / 4) entries, nblk = c / min(c, 256) (row flags, the
+// compacted row list, each image's first list position, the rows' marks,
+// the map rows' flags and counts, the channel blocks' flags), table a
+// scratch of
 // batch * p * pooled_h * pooled_w * c cell indices (int16 when
 // h * w <= 32767, else int32; 16-byte aligned), dfeat [batch, h, w, c] f32
 // (16-byte aligned; every element is written).  Launches on `stream`, does

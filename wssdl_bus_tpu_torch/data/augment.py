@@ -6,8 +6,8 @@
 grayscale; the channel is replicated at pack time):
 
   * weak images in training: rotation within +/-ROTATION_MAX_ANGLE degrees
-    (bilinear, ``scipy.ndimage.rotate``, background filled with the pixel
-    mean) and a random crop of up to CROPPING_MAX_MARGIN per side;
+    (bilinear, the native kernel or ``scipy.ndimage.rotate``, background
+    filled with the pixel mean) and a random crop of up to CROPPING_MAX_MARGIN per side;
   * every training image: brightness shift and contrast scaling about the
     image mean, both clipped to [0, 1];
   * mean subtraction, shortest-side / longest-side-capped bilinear resize
@@ -25,15 +25,30 @@ import numpy as np
 from PIL import Image
 from scipy import ndimage
 
+from wssdl_bus_tpu_torch import native
 from wssdl_bus_tpu_torch.config import Config
 
 
 def resize_bilinear(im: np.ndarray, out_h: int, out_w: int) -> np.ndarray:
-    """Bilinear resize of a single-channel float image through PIL (the JAX
-    package may use its native C++ kernel, which follows PIL's
-    triangle-filter convention)."""
+    """Bilinear resize of a single-channel float image: the native C++
+    kernel (``native/``, the JAX package's code) when it builds, PIL
+    otherwise (the same triangle-filter convention), as the JAX package
+    dispatches."""
+    out = native.resize_bilinear(im, out_h, out_w)
+    if out is not None:
+        return out
     pil = Image.fromarray(np.ascontiguousarray(im, dtype=np.float32))
     return np.asarray(pil.resize((out_w, out_h), Image.BILINEAR))
+
+
+def rotate_bilinear(im: np.ndarray, angle: float, cval: float) -> np.ndarray:
+    """Bilinear rotation about the centre, same shape, ``cval`` outside:
+    the native kernel when it builds, ``scipy.ndimage.rotate`` otherwise."""
+    out = native.rotate_bilinear(im, angle, cval)
+    if out is not None:
+        return out
+    return ndimage.rotate(im, angle, reshape=False, order=1, mode="constant",
+                          cval=cval)
 
 
 def compute_scale(h: int, w: int, target_size: int, max_size: int) -> float:
@@ -59,8 +74,7 @@ def sample_prep(im: np.ndarray, net_name: str, cfg: Config,
     if is_ws and is_training:
         if t.USE_ROTATION:
             angle = rng.uniform(-t.ROTATION_MAX_ANGLE, t.ROTATION_MAX_ANGLE)
-            im = ndimage.rotate(im, angle, reshape=False, order=1,
-                                mode="constant", cval=cfg.PIXEL_MEAN / 255.0)
+            im = rotate_bilinear(im, angle, cfg.PIXEL_MEAN / 255.0)
         if t.USE_CROPPING:
             mh = t.CROPPING_MAX_MARGIN * im.shape[0]
             mw = t.CROPPING_MAX_MARGIN * im.shape[1]

@@ -1,0 +1,158 @@
+"""Shared CLI plumbing for the port's entry points (counterpart of
+``wssdl_bus_tpu/main/common.py``; the reference's ``code/main/train.py:18-48``
+arguments).
+
+What the port has no path for yet raises ``NotImplementedError`` naming
+the ROADMAP item, never silently ignored: ``--bf16`` (A7), ``--mesh_data``
+/ ``--mesh_model`` > 1 (A10), ``Resnet_*`` networks (A6), ``--remat``.  The JAX
+package's XLA compilation cache has no counterpart here.
+"""
+
+from __future__ import annotations
+
+import argparse
+
+import numpy as np
+import torch
+
+from wssdl_bus_tpu_torch.config import Config
+from wssdl_bus_tpu_torch.data.augment import max_canvas
+from wssdl_bus_tpu_torch.data.dataset import (get_imdb, get_training_roidb,
+                                              prepare_roidb)
+
+
+def add_common_args(parser: argparse.ArgumentParser):
+    parser.add_argument("--network", default="VGGnet_train", type=str,
+                        help="name of the network (VGGnet_train / "
+                             "VGGnet_test; Resnet_* is not ported yet)")
+    parser.add_argument("--net_depth", default=18, type=int,
+                        help="ResNet depth (18, 34, 50, 101)")
+    parser.add_argument("--dataset", default="SNUBH", type=str,
+                        help="dataset mode (SNUBH / SNUBH_FG / UDIAT)")
+    parser.add_argument("--norm_type", default="BN", type=str,
+                        help="normalization type (BN / GN)")
+    parser.add_argument("--bf16", action="store_true",
+                        help="bfloat16 compute (not ported yet)")
+    parser.add_argument("--remat", default=None,
+                        choices=["true", "false", "head", "trunk"],
+                        help="activation remat (not ported yet)")
+    parser.add_argument("--data_dir", default="./SNUBH_BUS", type=str,
+                        help="SNUBH_BUS dataset root")
+    parser.add_argument("--set_cfgs", default=None, nargs=argparse.REMAINDER,
+                        help="override config keys, e.g. "
+                             "TEST.DEBUG_TIMELINE True")
+    parser.add_argument("--cfg", default=None, type=str,
+                        help="optional YAML config override file")
+    parser.add_argument("--randomize", action="store_true",
+                        help="do not fix the random seed")
+    parser.add_argument("--output_dir", default="./trained_model/run",
+                        type=str)
+    parser.add_argument("--mesh_data", default=1, type=int,
+                        help="data-parallel extent (only 1 is ported)")
+    parser.add_argument("--mesh_model", default=1, type=int,
+                        help="tensor-parallel extent (only 1 is ported)")
+    parser.add_argument("--device", default="cuda", type=str,
+                        help="device to run on: cuda (default) or cpu")
+
+
+def check_ported(args) -> None:
+    """Raise for the options the port has no path for yet."""
+    if getattr(args, "bf16", False):
+        raise NotImplementedError(
+            "--bf16: the bf16 compute scope is not ported yet (ROADMAP.md "
+            "A7, bf16 and int8)")
+    if getattr(args, "mesh_data", 1) * getattr(args, "mesh_model", 1) > 1:
+        raise NotImplementedError(
+            "--mesh_data / --mesh_model > 1: multi-device is not ported yet "
+            "(ROADMAP.md A10, multi-device)")
+    if getattr(args, "remat", None) is not None:
+        raise NotImplementedError(
+            "--remat: the port has no activation-remat option; its "
+            "training memory is measured without one (PERF.md)")
+    if args.network.startswith("Resnet"):
+        raise NotImplementedError(
+            f"--network {args.network}: the ResNet backbones are not ported "
+            "yet (ROADMAP.md A6)")
+
+
+def build_model(args):
+    """The one CLI -> detector construction, on ``args.device`` (PyTorch's
+    default init: a snapshot or converted weights are loaded into it)."""
+    from wssdl_bus_tpu_torch.models.detector import build_detector
+
+    check_ported(args)
+    return build_detector(args.network, num_classes=3, device=args.device)
+
+
+def add_train_args(parser: argparse.ArgumentParser):
+    parser.add_argument("--max_iters", default=60000, type=int)
+    parser.add_argument("--s_start_iter", default=0, type=int)
+    parser.add_argument("--s_end_iter", default=60000, type=int)
+    parser.add_argument("--ws_start_iter", default=0, type=int)
+    parser.add_argument("--ws_end_iter", default=60000, type=int)
+    parser.add_argument("--pretrained_model", default=None, type=str,
+                        help="path to an ImageNet .npy weight dict")
+    parser.add_argument("--unfreeze_stem", action="store_true",
+                        help="let VGG conv1/conv2 train")
+    parser.add_argument("--opt", default="adam", type=str,
+                        help="adam / amsgrad / sgd")
+    parser.add_argument("--lr", default=5e-4, type=float)
+    parser.add_argument("--lr_scheduling", default="const", type=str,
+                        help="const / pc / rop")
+    parser.add_argument("--imdb_train_s", default="bus_test", type=str)
+    parser.add_argument("--imdb_train_ws", default="bus_test", type=str)
+    parser.add_argument("--imdb_test", default="bus_test", type=str)
+    # tri-state prefetch: --prefetch forces on, --no_prefetch forces off,
+    # neither defers to cfg.TRAIN.USE_PREFETCH
+    parser.add_argument("--prefetch", action="store_true",
+                        help="overlap host-side augmentation with the device "
+                             "step on a background thread")
+    parser.add_argument("--no_prefetch", action="store_true")
+    parser.add_argument("--resume", action="store_true",
+                        help="resume from the latest snapshot in output_dir")
+    parser.add_argument("--qual_res", action="store_true",
+                        help="save qualitative overlays during in-loop eval")
+    parser.add_argument("--eval_batch", default=1, type=int,
+                        help="test images per device step during in-loop "
+                             "eval")
+
+
+def prefetch_choice(args):
+    """-> True / False / None (None = honor cfg.TRAIN.USE_PREFETCH)."""
+    if args.no_prefetch:
+        return False
+    if args.prefetch:
+        return True
+    return None
+
+
+def build_config(args) -> Config:
+    cfg = Config.from_yaml(args.cfg) if args.cfg else Config()
+    if args.set_cfgs:
+        cfg = cfg.with_overrides(args.set_cfgs)
+    if hasattr(args, "lr"):
+        cfg = cfg.with_overrides(["TRAIN.LEARNING_RATE", str(args.lr)])
+    return cfg
+
+
+def load_train_data(args, cfg: Config):
+    """-> (roidb_s, roidb_ws, imdb_test, roidb_test, canvas_hw)."""
+    imdb_s = get_imdb(args.imdb_train_s, args.data_dir)
+    roidb_s = get_training_roidb(imdb_s, use_flipped=cfg.TRAIN.USE_FLIPPED)
+    imdb_ws = get_imdb(args.imdb_train_ws, args.data_dir)
+    roidb_ws = get_training_roidb(imdb_ws, use_flipped=cfg.TRAIN.USE_FLIPPED)
+    imdb_test = get_imdb(args.imdb_test, args.data_dir)
+    roidb_test = prepare_roidb(imdb_test)
+
+    sizes = [(e["height"], e["width"])
+             for e in roidb_s + roidb_ws + roidb_test]
+    canvas = max_canvas(sizes, cfg.TRAIN.SCALES[0], cfg.TRAIN.MAX_SIZE,
+                        crop_margin=(cfg.TRAIN.CROPPING_MAX_MARGIN
+                                     if cfg.TRAIN.USE_CROPPING else 0.0))
+    return roidb_s, roidb_ws, imdb_test, roidb_test, canvas
+
+
+def seed_all(args, cfg: Config):
+    if not args.randomize:
+        np.random.seed(cfg.RNG_SEED)
+        torch.manual_seed(cfg.RNG_SEED)

@@ -110,19 +110,119 @@ def roi_pool(feat: torch.Tensor, rois: torch.Tensor, pooled_h: int = 7,
     return out
 
 
+# The Pallas backward kernels' window and mask: bin row i is read as the
+# ``span(h, pooled_h)`` map rows from ``sh = clip(lo, 0, h - span)``
+# (``roi_pool_pallas.py:_bin_window`` / ``_spans``), and a cell outside the
+# bin is masked by ADDING -1e30, not replaced: a NaN stays NaN, +inf stays
+# +inf.
+_BIG = 1e30
+BWD_C_BLOCK = 256   # roi_pool_pallas.py:_c_block(c, backward=True)
+
+
+def span(limit: int, pooled: int) -> int:
+    """Map rows (or columns) of a bin's window in the Pallas kernels."""
+    return min(limit // pooled + 2, limit)
+
+
+def channel_block(c: int) -> int:
+    """Channels of one channel block of the f32 backward (``_bwd_kernel``
+    runs over ``c // channel_block(c)`` of them)."""
+    return min(c, BWD_C_BLOCK)
+
+
+def argmax_nan_first(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """``jnp.argmax``: the first NaN along ``dim`` if there is one, else
+    the first maximum."""
+    nan = torch.isnan(x)
+    return torch.where(nan.any(dim), nan.to(torch.uint8).argmax(dim),
+                       x.argmax(dim))
+
+
 def active_rows(grad: torch.Tensor) -> torch.Tensor:
     """[B, P, ...] cotangent -> [B, P] bool: the ROIs whose cotangent row
-    has a nonzero (or NaN) entry.  The others contribute nothing to the
-    backward and are skipped; in the weak group only the MIL-selected ROI
-    of each bag has one."""
+    has a nonzero (or NaN) entry: the bf16 kernel's rule
+    (``_fc_bwd_call``'s ``any(g != 0)``).  The others contribute nothing to
+    the backward and are skipped; in the weak group only the MIL-selected
+    ROI of each bag has one."""
     return (grad != 0).flatten(2).any(dim=2)
+
+
+def active_blocks(grad: torch.Tensor) -> torch.Tensor:
+    """[B, P, ..., C] cotangent -> [B, P, C // channel_block(C)] bool: the
+    f32 kernel's rule (``_bwd_kernel``'s ``sum(abs(g)) > 0`` per channel
+    block): a block of a ROI is active when it has a nonzero entry and no
+    NaN.  Channels past the last whole block are never active."""
+    b, p, c = grad.shape[0], grad.shape[1], grad.shape[-1]
+    cb = channel_block(c)
+    nblk = c // cb
+    g = grad.reshape(b, p, -1, c)[..., :nblk * cb].reshape(b, p, -1, nblk,
+                                                           cb)
+    return (g != 0).any(4).any(2) & ~torch.isnan(g).any(4).any(2)
+
+
+def _pool_grad(feat, rois, g, active, pooled_h, pooled_w, spatial_scale,
+               flavor):
+    """dfeat of the Pallas backward kernels, op for op.  ``g`` [B, P, Ph,
+    Pw, C] f32, ``active`` [B, P, C] bool: the channels of each ROI whose
+    cotangent the kernel reads (the others add nothing)."""
+    b, h, w, c = feat.shape
+    p = rois.shape[1]
+    dfeat = torch.zeros_like(feat)
+    if b == 0 or p == 0 or c == 0:
+        return dfeat
+    rsw, rsh, roi_w, roi_h = quantize_rois(rois.reshape(-1, 4),
+                                           spatial_scale)
+    hlo, hhi = bin_edges(rsh, roi_h, pooled_h, h, flavor)     # [B*P, Ph]
+    wlo, whi = bin_edges(rsw, roi_w, pooled_w, w, flavor)     # [B*P, Pw]
+    span_h = span(h, pooled_h)
+    ar_s = torch.arange(span_h, device=feat.device)
+    ar_w = torch.arange(w, device=feat.device)
+    zero = torch.zeros((), dtype=feat.dtype, device=feat.device)
+    big = torch.tensor(-_BIG, dtype=feat.dtype, device=feat.device)
+    for bi, r in active.any(2).nonzero().tolist():
+        q = bi * p + r
+        nonempty = ((hhi[q] > hlo[q])[:, None]
+                    & (whi[q] > wlo[q])[None, :])            # [Ph, Pw]
+        # g * ne, the kernels' product (an inf or NaN times 0 is NaN)
+        g_q = torch.where(active[bi, r], g[bi, r], zero) \
+            * nonempty[:, :, None].to(g.dtype)                # [Ph, Pw, C]
+        # each bin row's window: span_h rows from sh, -1e30 added outside
+        # the bin
+        sh = hlo[q].clamp(max=h - span_h)                     # [Ph]
+        rows = sh[:, None] + ar_s                             # [Ph, S]
+        off_h = torch.where((rows >= hlo[q][:, None])
+                            & (rows < hhi[q][:, None]), zero, big)
+        win = feat[bi][rows] + off_h[:, :, None, None]       # [Ph, S, W, C]
+        # rows stage: each column's first max row over the window
+        h_star = argmax_nan_first(win, 1)                    # [Ph, W, C]
+        col_max = win.gather(1, h_star[:, None])[:, 0]       # [Ph, W, C]
+        # columns stage, over all W: each bin's first max column
+        off_w = torch.where((ar_w >= wlo[q][:, None])
+                            & (ar_w < whi[q][:, None]), zero, big)  # [Pw, W]
+        w_star = argmax_nan_first(col_max[:, None] + off_w[None, :, :, None],
+                                  2)                         # [Ph, Pw, C]
+        g_rows = torch.zeros((pooled_h, w, c), dtype=g.dtype,
+                             device=g.device)
+        for j in range(pooled_w):
+            # a select, not a product: the kernels' one-hot products run as
+            # selects (interpret mode), so a NaN or inf cotangent reaches
+            # its chosen cell only
+            g_rows = g_rows + torch.where(
+                ar_w[None, :, None] == w_star[:, j, None, :],
+                g_q[:, j, None, :], zero)
+        for i in range(pooled_h):
+            # one add per (column, channel), at the column's first max row
+            dfeat[bi].scatter_add_(0, (h_star[i] + sh[i])[None],
+                                   g_rows[i][None])
+    return dfeat
 
 
 def roi_pool_grad(feat: torch.Tensor, rois: torch.Tensor, grad: torch.Tensor,
                   pooled_h: int = 7, pooled_w: int = 7,
                   spatial_scale: float = 1.0 / 16.0,
                   flavor: str = "gpu") -> torch.Tensor:
-    """The VJP of batched ROI max pooling with respect to ``feat``.
+    """The VJP of batched ROI max pooling with respect to ``feat``: what
+    the Pallas kernel ``_bwd_kernel`` computes.
 
     Args:
       feat: [B, H, W, C] the forward's feature maps.
@@ -131,51 +231,30 @@ def roi_pool_grad(feat: torch.Tensor, rois: torch.Tensor, grad: torch.Tensor,
         shape with the same B, P and element order [B, P, Ph, Pw, C].
     Returns dfeat [B, H, W, C].
 
-    Placement, as the Pallas kernel's: for a non-empty bin (i, j) and a
-    channel, w* is the first column of the bin whose column maximum (over
-    the bin's rows) equals the bin maximum, h* the first row of the bin
-    attaining that column maximum; the bin's whole cotangent goes to
-    (h*, w*).  Order of sums, also the kernel's: ROIs ascending; within a
-    ROI, bin rows i ascending; within a row, the cotangents of the bins
-    that share a column are summed in j order first, and that sum is added
-    to the cell.  ROIs with an all-zero cotangent row are skipped."""
-    b, h, w, c = feat.shape
-    p = rois.shape[1]
+    Placement: bin row i reads the ``span`` map rows from
+    ``sh = min(lo_i, H - span)``, masked by adding -1e30 outside the bin.
+    For each column, h* is the first row of that span attaining its
+    maximum; for bin (i, j), w* is the first of all W columns whose masked
+    column maximum is the largest.  A NaN is the largest value, so a NaN
+    anywhere in the span rows routes the bin there, even outside the bin
+    or the ROI; without NaNs (and values within +-2^96), h* and w* lie in
+    the bin: its first max column, then that column's first max row.  The
+    bin's whole cotangent goes to (h*, w*).  Order of sums: ROIs ascending;
+    within a ROI, bin rows i ascending; within a row, the cotangents of the
+    bins that share a column are summed in j order first, and that sum is
+    added to the cell.  Per channel block of ``channel_block(C)`` channels,
+    a ROI whose cotangent there is all zero or holds a NaN is skipped; a
+    non-finite sum spreads NaN over its span rows, as the kernel's
+    one-hot products do."""
+    b, p = rois.shape[:2]
+    c = feat.shape[-1]
     g = grad.reshape(b, p, pooled_h, pooled_w, c)
-    dfeat = torch.zeros_like(feat)
-    if b == 0 or p == 0:
-        return dfeat
-    rsw, rsh, roi_w, roi_h = quantize_rois(rois.reshape(-1, 4),
-                                           spatial_scale)
-    hlo, hhi = bin_edges(rsh, roi_h, pooled_h, h, flavor)     # [B*P, Ph]
-    wlo, whi = bin_edges(rsw, roi_w, pooled_w, w, flavor)     # [B*P, Pw]
-    ar_h = torch.arange(h, device=feat.device)
-    ar_w = torch.arange(w, device=feat.device)
-    neg_inf = torch.tensor(float("-inf"), dtype=feat.dtype,
-                           device=feat.device)
-    for bi, r in active_rows(g).nonzero().tolist():
-        q = bi * p + r
-        f = feat[bi]
-        # rows stage: each row bin's column maxima and their first rows
-        hm = (ar_h >= hlo[q][:, None]) & (ar_h < hhi[q][:, None])  # [Ph, H]
-        rows = torch.where(hm[:, :, None, None], f[None], neg_inf)
-        h_star = rows.argmax(dim=1)                          # [Ph, W, C]
-        col_max = rows.gather(1, h_star[:, None]).squeeze(1)  # [Ph, W, C]
-        # columns stage: each bin's first column attaining the bin max
-        wm = (ar_w >= wlo[q][:, None]) & (ar_w < whi[q][:, None])  # [Pw, W]
-        cols = torch.where(wm[None, :, :, None], col_max[:, None], neg_inf)
-        w_star = cols.argmax(dim=2)                          # [Ph, Pw, C]
-        nonempty = ((hhi[q] > hlo[q])[:, None]
-                    & (whi[q] > wlo[q])[None, :])            # [Ph, Pw]
-        g_q = g[bi, r] * nonempty[:, :, None].to(g.dtype)    # [Ph, Pw, C]
-        for i in range(pooled_h):
-            g_rows = torch.zeros((w, c), dtype=g.dtype, device=g.device)
-            for j in range(pooled_w):
-                g_rows = g_rows + (ar_w[:, None] == w_star[i, j][None, :]) \
-                    * g_q[i, j][None, :]
-            # one add per (column, channel), at the column's first max row
-            dfeat[bi].scatter_add_(0, h_star[i][None], g_rows[None])
-    return dfeat
+    cb = channel_block(c) if c else 1
+    blk = active_blocks(g)                                   # [B, P, nblk]
+    active = torch.zeros((b, p, c), dtype=torch.bool, device=g.device)
+    active[..., :blk.shape[2] * cb] = blk.repeat_interleave(cb, dim=2)
+    return _pool_grad(feat, rois, g, active, pooled_h, pooled_w,
+                      spatial_scale, flavor)
 
 
 def roi_pool_grad_bf16(feat: torch.Tensor, rois: torch.Tensor,
@@ -187,7 +266,13 @@ def roi_pool_grad_bf16(feat: torch.Tensor, rois: torch.Tensor,
     instance): :func:`roi_pool_grad`'s placement and order of sums, ranking
     ``bf16(feat)`` (rounding makes ties the f32 map did not have: they go to
     the first column, then the first row), with the cotangent upcast to f32
-    and dfeat accumulated in f32, returned in feat's dtype."""
+    and dfeat accumulated in f32, returned in feat's dtype.  A ROI is
+    active when any entry of its cotangent row is nonzero or NaN, over all
+    channels."""
+    b, p = rois.shape[:2]
+    c = feat.shape[-1]
+    g = grad.to(torch.float32).reshape(b, p, pooled_h, pooled_w, c)
+    active = active_rows(g)[..., None].expand(b, p, c)
     feat_cast = feat.to(torch.bfloat16).to(torch.float32)
-    return roi_pool_grad(feat_cast, rois, grad.to(torch.float32), pooled_h,
-                         pooled_w, spatial_scale, flavor).to(feat.dtype)
+    return _pool_grad(feat_cast, rois, g, active, pooled_h, pooled_w,
+                      spatial_scale, flavor).to(feat.dtype)

@@ -39,7 +39,8 @@ import functools
 
 import torch
 
-from wssdl_bus_tpu_torch.ops.roi_pool import (roi_pool, roi_pool_grad,
+from wssdl_bus_tpu_torch.ops.roi_pool import (channel_block, roi_pool,
+                                              roi_pool_grad,
                                               roi_pool_grad_bf16,
                                               rois_with_batch_index)
 
@@ -285,9 +286,12 @@ def _launch_backward(feat, rois, grad, pooled_h, pooled_w, spatial_scale,
     if b == 0:
         return dfeat
     # the kernels' scratch (csrc/roi_pool.cu, wssdl_roi_pool_bwd): row flags,
-    # the compacted row list and each image's first position; the argmax
+    # the compacted row list, each image's first position, the rows' marks,
+    # the map rows' flags and counts, the channel blocks' flags; the argmax
     # table of cell indices y * w + x, int16 where they all fit
-    work = torch.empty((2 * b * p + b + 1,), dtype=torch.int32,
+    nblk = c // channel_block(c) if c else 0
+    work = torch.empty((4 * b * p + b + 1 + b * (5 * h + 1)
+                        + -(-b * p * nblk // 4),), dtype=torch.int32,
                        device=feat.device)
     cell_dtype = torch.int16 if h * w <= _SHORT_CELLS else torch.int32
     table = torch.empty((max(b * p * pooled_h * pooled_w * c, 8),),
