@@ -3,7 +3,9 @@
 
     python3 chip_smoke.py [--profile]
 
-Phases (any failure exits non-zero; nothing is caught):
+Phases (any failure, a failed check or an exception, prints
+``chip_smoke: FAIL: phase <n> (<name>): ...`` on stdout and exits 1; in a
+directory without the port beside it, phase 0 fails so):
   1. device line: torch's name and count, nvidia-smi's name and power limit;
   2. build the CUDA kernels from ``wssdl_bus_tpu_torch/csrc`` with nvcc for
      sm_90a, one nvcc per source, all started together, printing ptxas's
@@ -78,7 +80,31 @@ Phases (any failure exits non-zero; nothing is caught):
      prep, device step (CUDA events), copy-back + decode and NMS; then
      (after phase 6 turns TF32 off) ``test_net`` at batch 8 through the
      kernels and with ``plain_ops=True``: all_boxes equal;
- 11. a ``{"kernels": [...]}`` line, then the last line
+ 11. (TF32 off, deterministic cuDNN) the training entry points over the
+     evaluation imdb (training, weak and test imdb alike, as the CLI
+     defaults are), from the seeded He weights written as a
+     ``--pretrained_model`` ``.npy`` (every array loaded), default TRAIN
+     budgets and ``DEVICE_PREP``: ``main.train.main`` for 6 iterations
+     with prefetch, evaluations (batch 8) and snapshots at 3 and 6 (files,
+     finite losses, launches: per iteration 1 NMS + 2 pool forward + 2
+     backward, per evaluation pass 2 + 2 + 0, every forward on the
+     shared-memory path); its ``--resume`` from the iteration-3 snapshot,
+     both under ``torch.use_deterministic_algorithms`` (warnings name any
+     op without a deterministic implementation): parameters and moments
+     of the iteration-6 snapshots equal bit for bit, test losses equal
+     (else held to the spread of two uninterrupted runs);
+     ``main.train_alter.main`` for 4 iterations (supervised 0-2, weak 1-3:
+     1 + 1 + 1 launches a step, two optimizer states stepped 3 times,
+     ws_step 3); both regimes with and without prefetch at PyTorch's
+     defaults (cuDNN TF32 convs) and the host-prep feed for the numbers
+     (ms per iteration by host clock and CUDA events, the feed's host ms,
+     upload bytes, evaluation ms/image, peak memory); the
+     device-prepped blob against the host blob for one supervised and one
+     weak batch; ``periodic_eval`` from the iteration-6 snapshot through
+     the kernels and with ``plain_ops=True``: all_boxes and test losses
+     equal; the pool forward at the eval step's [8, 128] ROIs against its
+     plain version, timed;
+ 12. a ``{"kernels": [...]}`` line, then the last line
      ``{"ok": true, "device": {...}}``.
 
 ``--profile`` adds torch.profiler breakdowns (device time by kernel, busy
@@ -93,10 +119,13 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import pickle
+import shutil
 import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 import numpy as np
 
@@ -117,8 +146,19 @@ STEM_PATHS = {"vgg_stem_fused": "WSSDL_FUSED_STEM",
               "vgg_conv2_pool": "WSSDL_STEM_TAIL"}
 
 
+PHASE = "0 (start)"     # the phase running; every failure names it
+
+
+def phase(label: str) -> None:
+    global PHASE
+    PHASE = label
+
+
 def _fail(msg: str):
-    print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
+    """Name the phase and the failure on stdout (and stderr) and exit 1."""
+    line = f"chip_smoke: FAIL: phase {PHASE}: {msg}"
+    print(line, flush=True)
+    print(line, file=sys.stderr, flush=True)
     sys.exit(1)
 
 
@@ -1670,12 +1710,469 @@ def check_eval_parity(ev: dict, tmpdir: str):
            "the plain run")
 
 
+# --------------------------------------------------------------------- #
+# phase 11: the training entry points
+# --------------------------------------------------------------------- #
+CLI_ITERS = 6             # the combined run; snapshots and evaluations at 3, 6
+CLI_SNAPSHOT = "VGGnet_fast_rcnn_iter_{}"
+
+
+def write_he_npy(path: str) -> int:
+    """The seeded He weights (``models/convert.py:he_tree``, seed 0,
+    ``input_scale`` 64) as a reference-layout ``.npy`` dict ``{scope:
+    {"weights", "biases"}}`` (flat VGG scopes); -> the arrays written."""
+    from wssdl_bus_tpu_torch.models.convert import he_tree, params_to_jax
+    from wssdl_bus_tpu_torch.models.detector import build_detector
+
+    tree = he_tree(params_to_jax(
+        build_detector("VGGnet_train", device="cpu").state_dict()), 0,
+        input_scale=64.0)
+    data = {}
+
+    def walk(node, path):
+        for k, v in node.items():
+            if isinstance(v, dict):
+                walk(v, path + (k,))
+            else:
+                scope = "/".join(p for p in path if p not in (
+                    "backbone", "conv", "dense"))
+                data.setdefault(scope, {})[
+                    {"kernel": "weights", "bias": "biases"}[k]] = v
+
+    for part in ("trunk", "head"):
+        walk(tree[part]["params"], ())
+    np.save(path, data, allow_pickle=True)
+    return sum(len(v) for v in data.values())
+
+
+def train_cli(fn, argv, log: str):
+    """One run of a training entry point's ``main`` with its stdout in
+    ``log`` and the kernels' counters around it; -> (solver, launches)."""
+    import torch
+
+    reset_counts()
+    with open(log, "w") as f, contextlib.redirect_stdout(f):
+        solver = fn(argv)
+    torch.cuda.synchronize()
+    return solver, read_counts()
+
+
+def cli_rates(solver) -> dict:
+    """ms per solver iteration (host clock, CUDA events), the feed's host
+    ms and the upload bytes per step: medians over the iterations after the
+    first; evaluation ms/image over the in-loop passes."""
+    st = solver.stats["train"]
+
+    def med(xs):
+        return float(np.median(xs[1:] if len(xs) > 1 else xs))
+
+    ev = solver.stats.get("eval", [])
+    return {"iter_ms_host": med(st["iter_ms_host"]),
+            "iter_ms_cuda_events": med(st["iter_ms_cuda"]),
+            "feed_ms_host": med(st["feed_ms_host"]),
+            "upload_bytes": int(max(st["upload_bytes"])),
+            "eval_ms_per_image": (sum(e["seconds"] for e in ev) * 1e3
+                                  / sum(e["images"] for e in ev)
+                                  if ev else None),
+            "iters": st["count"]["iter_ms_host"]}
+
+
+def same_snapshot(a: str, b: str) -> dict:
+    """Max |diff| of parameters and optimizer moments between two port
+    snapshots, and whether their last test losses are equal."""
+    import torch
+
+    from wssdl_bus_tpu_torch.train.checkpoint import (load_checkpoint,
+                                                      load_host_state)
+
+    va, _, oa, wa = load_checkpoint(a, opt_state=True, opt_state_ws=True)
+    vb, _, ob, wb = load_checkpoint(b, opt_state=True, opt_state_ws=True)
+    p_err = max(float((va[k] - vb[k]).abs().max()) for k in va)
+    m_err = 0.0
+    for x, y in ((oa, ob), (wa, wb)):
+        if x is None:
+            continue
+        _check(x["count"] == y["count"], "optimizer counts differ")
+        for m in ("mu", "nu"):
+            m_err = max(m_err, max(float((x[m][k] - y[m][k]).abs().max())
+                                   for k in x[m]))
+    la = load_host_state(a)["test_loss_logs"]
+    lb = load_host_state(b)["test_loss_logs"]
+    equal = p_err == 0.0 and m_err == 0.0 and la == lb
+    return {"params_max_abs_diff": p_err, "moments_max_abs_diff": m_err,
+            "test_losses": [la[-1], lb[-1]], "equal": bool(equal)}
+
+
+@contextlib.contextmanager
+def pytorch_defaults():
+    """PyTorch's own numerics settings (cuDNN TF32 convs, f32 matmuls,
+    non-deterministic cuDNN) for a timed run; the caller's are restored."""
+    import torch
+
+    keys = ("allow_tf32", "deterministic", "benchmark")
+    saved = {k: getattr(torch.backends.cudnn, k) for k in keys}
+    saved_mm = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cudnn.deterministic = False
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            setattr(torch.backends.cudnn, k, v)
+        torch.backends.cuda.matmul.allow_tf32 = saved_mm
+
+
+@contextlib.contextmanager
+def deterministic_ops():
+    """``torch.use_deterministic_algorithms(True, warn_only=True)`` (the
+    ops with a deterministic alternative take it; the others warn, naming
+    themselves) around a run; yields the warnings' texts."""
+    import torch
+
+    names = []
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            yield names
+    finally:
+        torch.use_deterministic_algorithms(False)
+    names.extend(sorted({str(w.message).splitlines()[0] for w in caught
+                         if "deterministic" in str(w.message)}))
+
+
+def check_device_prep(solver, smi: str) -> dict:
+    """Phase 11d: the device-prepped ``data`` of one supervised and one
+    weak batch against the host ``prep_image`` blob for the same draws:
+    unrotated images within 2e-5 x 255, rotated weak images within the
+    uint8 re-quantisation bound (0.5 / 255 of the range x the largest
+    contrast factor x 255, ``ops/device_prep.py``) + 2e-5 x 255."""
+    import torch
+
+    from wssdl_bus_tpu_torch.data.loader import _raw_canvas
+    from wssdl_bus_tpu_torch.data.minibatch import get_minibatch
+    from wssdl_bus_tpu_torch.ops.device_prep import (net_divisor_for,
+                                                     prep_device_batch)
+
+    cfg, canvas = solver.cfg, solver.eng.canvas_hw
+    db = solver.roidb_train_s
+    raw_hw = _raw_canvas(db)
+    out = {}
+    for tag, is_ws, n in (("supervised", False, cfg.TRAIN.IMS_PER_BATCH),
+                          ("weak", True, cfg.TRAIN.WS_IMS_PER_BATCH)):
+        entries = db[2:2 + n]
+        host = get_minibatch(entries, "VGGnet_train", cfg, canvas, True,
+                             is_ws, np.random.RandomState(11))
+        dev = get_minibatch(entries, "VGGnet_train", cfg, canvas, True,
+                            is_ws, np.random.RandomState(11), raw_hw=raw_hw)
+        _check(np.array_equal(host["im_info"], dev["im_info"]),
+               f"device prep {tag}: the draws differ")
+        got = prep_device_batch(
+            torch.as_tensor(dev["raw"], device="cuda"),
+            torch.as_tensor(dev["prep"], device="cuda"), canvas,
+            cfg.PIXEL_MEAN / 255.0,
+            net_divisor_for("VGGnet", cfg.PIXEL_STD)).cpu().numpy()
+        err = float(np.abs(got - host["data"]).max())
+        bound = 2e-5 * 255 + (0.5 * cfg.TRAIN.CONTRAST_ADJUSTMENT_UPPER_FACTOR
+                              if is_ws else 0.0)
+        _check(err <= bound, f"device prep {tag}: max |diff| {err} > "
+               f"{bound}")
+        out[tag] = {"max_abs_err": err, "bound": bound}
+    print(f"[train-cli] device prep vs host prep_image (same draws): "
+          f"supervised max |diff| {out['supervised']['max_abs_err']:.3e} "
+          f"(bound {out['supervised']['bound']:.3e}), rotated weak "
+          f"{out['weak']['max_abs_err']:.3e} (bound "
+          f"{out['weak']['bound']:.3e}), x255 units; {smi}", flush=True)
+    return out
+
+
+def eval_pool_stats(solver) -> dict:
+    """Phase 11e: the pool forward at the eval step's shape: a batch of
+    EVAL_BATCH test images through the kernel engine's trunk, TEST
+    proposals, TRAIN.BATCH_SIZE ROIs sampled per image with no GT
+    appended; kernel == plain, and its times and bound."""
+    import torch
+
+    from wssdl_bus_tpu_torch.data.minibatch import get_minibatch
+    from wssdl_bus_tpu_torch.ops.proposal_target import proposal_target_layer
+    from wssdl_bus_tpu_torch.ops.roi_pool_cuda import (roi_pool_fc,
+                                                       roi_pool_fc_plain)
+    from wssdl_bus_tpu_torch.train.engine import _batch_tensors
+
+    eng, cfg = solver.eng, solver.cfg
+    blobs = get_minibatch(solver.roidb_test[:BATCH], "VGGnet_train", cfg,
+                          eng.canvas_hw, False, False,
+                          np.random.RandomState(0))
+    b = _batch_tensors(blobs, eng.device)
+    with torch.no_grad():
+        eng.model.eval()
+        feat, score, deltas = eng.model.apply_trunk(b["data"])
+        props = eng._proposals(score, deltas, b["im_info"], cfg.TEST)
+        rois = proposal_target_layer(
+            props.boxes, props.valid, b["gt_boxes"], b["num_gt_boxes"],
+            generator=eng.generator, include_gt=False,
+            **eng._pt_kwargs).rois
+        scale = 1.0 / cfg.FEAT_STRIDE
+        got = roi_pool_fc(feat, rois, 7, 7, scale)
+        want = roi_pool_fc_plain(feat, rois, 7, 7, scale)
+        _check(torch.equal(got, want), "ROI pool at the eval step's shape: "
+               "kernel != plain")
+        st = pool_forward_stats(feat, rois, scale, torch.float32, "eval")
+    return dict(st, max_abs_err=float((got - want).abs().max()))
+
+
+def run_training_entry_points(tmpdir: str, data: str, out_dir: str,
+                              smi: str) -> dict:
+    """Phase 11 (TF32 off, deterministic cuDNN): ``main.train`` and
+    ``main.train_alter`` over the evaluation imdb (as training, weak and
+    test imdb, as the CLI defaults do), from the seeded He weights as a
+    ``--pretrained_model`` ``.npy``, with the default TRAIN budgets and
+    ``DEVICE_PREP``, checks and numbers; see the module docstring."""
+    import torch
+
+    from wssdl_bus_tpu_torch.data.loader import RoIDataLayerJoint
+    from wssdl_bus_tpu_torch.main import train as main_train
+    from wssdl_bus_tpu_torch.main import train_alter as main_alter
+    from wssdl_bus_tpu_torch.models.detector import build_detector
+    from wssdl_bus_tpu_torch.models.pretrained import load_pretrained_model
+    from wssdl_bus_tpu_torch.train.checkpoint import (load_checkpoint,
+                                                      load_host_state)
+    from wssdl_bus_tpu_torch.train.solver import _build_solver
+
+    t0 = time.perf_counter()
+    npy = os.path.join(tmpdir, "vgg16_he.npy")
+    n_arrays = write_he_npy(npy)
+    check = build_detector("VGGnet_train", device="cuda")
+    load_pretrained_model(npy, check, min_loaded=n_arrays)
+    ref = build_model("cuda", seed=0).state_dict()
+    _check(all(torch.equal(v, ref[k]) for k, v in check.state_dict().items()),
+           "the pretrained .npy did not load every array it holds")
+    del check, ref
+
+    def argv(out, iters, *extra, snap=3, test=3):
+        return ["--data_dir", data, "--output_dir", out, "--max_iters",
+                str(iters), "--pretrained_model", npy, "--eval_batch",
+                str(BATCH), *extra, "--set_cfgs", "TRAIN.DISPLAY", "1",
+                "TRAIN.SNAPSHOT_ITERS", str(snap), "TRAIN.TEST_ITERS",
+                str(test)]
+
+    def logfile(tag):
+        os.makedirs(out_dir, exist_ok=True)
+        return os.path.join(out_dir, f"train_{tag}.log")
+
+    per_iter = {"nms_keep": 1, "roi_pool_fc": 2, "roi_pool_fc_backward": 2}
+    per_eval = {"nms_keep": 2, "roi_pool_fc": 2}
+
+    def want(iters, evals, step=per_iter):
+        return {k: iters * step.get(k, 0) + evals * per_eval.get(k, 0)
+                for k in per_iter}
+
+    # 11a: the combined regime, prefetch on, deterministic ops
+    out_a = os.path.join(tmpdir, "train_a")
+    torch.cuda.reset_peak_memory_stats()
+    with deterministic_ops() as nondet_a:
+        sol_a, counts_a = train_cli(main_train.main,
+                                    argv(out_a, CLI_ITERS, "--prefetch"),
+                                    logfile("combined"))
+    peak = torch.cuda.max_memory_allocated()
+    with open(logfile("combined")) as f:
+        log = f.read()
+    _check(f"loaded {n_arrays} pretrained arrays" in log,
+           f"main.train did not load the {n_arrays} pretrained arrays")
+    names = set(os.listdir(out_a))
+    for want_f in (CLI_SNAPSHOT.format(3), CLI_SNAPSHOT.format(CLI_ITERS),
+                   "log.txt", "test"):
+        _check(want_f in names, f"main.train wrote no {want_f}")
+    _check({"detections.pkl", "eval.txt"} <= set(os.listdir(
+        os.path.join(out_a, "test"))), "main.train: no in-loop eval files")
+    losses = np.asarray(sol_a.stats["train"]["losses"])
+    _check(losses.shape == (CLI_ITERS, 6) and np.isfinite(losses).all(),
+           f"main.train losses {losses}")
+    for e in sol_a.stats["eval"]:
+        _check(np.isfinite(e["test_loss"]).all(), "non-finite test loss")
+    check_counts(counts_a, want(CLI_ITERS, 2), "main.train")
+    paths_a = check_pool_paths(counts_a, "train_cli")
+    rates = {"combined_prefetch": cli_rates(sol_a)}
+    print(f"[train-cli] main.train: {CLI_ITERS} iterations (1 + 2 images, "
+          f"default TRAIN budgets, DEVICE_PREP, prefetch), evaluations and "
+          f"snapshots at 3 and 6; launches {counts_a} (per iteration 1 NMS +"
+          f" 2 pool forward + 2 backward, per evaluation pass of "
+          f"{EVAL_IMAGES} images at batch {BATCH} 2 + 2 + 0), pool forward "
+          f"by path {paths_a}; losses finite, last {losses[-1].round(4)}; "
+          f"test losses {[round(e['test_loss'][0], 4) for e in sol_a.stats['eval']]};"
+          f" peak {peak / 2**20:.1f} MiB allocated; {smi}", flush=True)
+
+    # 11b: exact resume from the iteration-3 snapshot
+    out_b = os.path.join(tmpdir, "train_b")
+    os.makedirs(out_b)
+    shutil.copytree(os.path.join(out_a, CLI_SNAPSHOT.format(3)),
+                    os.path.join(out_b, CLI_SNAPSHOT.format(3)))
+    with deterministic_ops() as nondet_b:
+        sol_b, counts_b = train_cli(
+            main_train.main, argv(out_b, CLI_ITERS, "--prefetch", "--resume"),
+            logfile("combined_resume"))
+    _check(sol_b.start_iter == 3, f"resume started at {sol_b.start_iter}")
+    check_counts(counts_b, want(CLI_ITERS - 3, 1), "main.train --resume")
+    paths_b = check_pool_paths(counts_b, "train_cli_resume")
+    snap = CLI_SNAPSHOT.format(CLI_ITERS)
+    resume = same_snapshot(os.path.join(out_a, snap),
+                           os.path.join(out_b, snap))
+    resume["nondeterministic_ops"] = sorted(set(nondet_a) | set(nondet_b))
+    if not resume["equal"]:
+        # name the op and hold the resume to two uninterrupted runs' spread
+        out_a2 = os.path.join(tmpdir, "train_a2")
+        with deterministic_ops():
+            train_cli(main_train.main, argv(out_a2, CLI_ITERS, "--prefetch"),
+                      logfile("combined_again"))
+        spread = same_snapshot(os.path.join(out_a, snap),
+                               os.path.join(out_a2, snap))
+        shutil.rmtree(out_a2)
+        resume["spread_of_two_runs"] = spread
+        print(f"[train-cli] resume differs: {resume}; nondeterministic ops: "
+              f"{resume['nondeterministic_ops']}", flush=True)
+        _check(not spread["equal"], "two uninterrupted runs agree exactly "
+               "but the resumed run differs: the resume is at fault")
+        for k in ("params_max_abs_diff", "moments_max_abs_diff"):
+            _check(resume[k] <= spread[k], f"resume {k} {resume[k]} > the "
+                   f"spread of two runs {spread[k]}")
+    shutil.rmtree(out_b)
+    print(f"[train-cli] exact resume (TF32 off, deterministic cuDNN and "
+          f"torch.use_deterministic_algorithms): iteration-{CLI_ITERS} "
+          f"snapshot of the run resumed at 3 vs the uninterrupted run: "
+          f"parameters max |diff| {resume['params_max_abs_diff']}, moments "
+          f"{resume['moments_max_abs_diff']}, test losses "
+          f"{resume['test_losses']}; {'equal bit for bit' if resume['equal'] else 'within the spread'};"
+          f" ops without a deterministic implementation: "
+          f"{resume['nondeterministic_ops'] or 'none'}; launches {counts_b}",
+          flush=True)
+
+    # 11c: the alternating regime: 0 supervised, 1-2 both, 3 weak
+    out_c = os.path.join(tmpdir, "train_alter")
+    sol_c, counts_c = train_cli(
+        main_alter.main, argv(out_c, 4, "--prefetch", "--s_end_iter", "2",
+                              "--ws_start_iter", "1", snap=4, test=4),
+        logfile("alternating"))
+    check_counts(counts_c, want(6, 1, {"nms_keep": 1, "roi_pool_fc": 1,
+                                       "roi_pool_fc_backward": 1}),
+                 "main.train_alter")
+    paths_c = check_pool_paths(counts_c, "train_alter_cli")
+    snap_c = os.path.join(out_c, CLI_SNAPSHOT.format(4))
+    _, _, opt, opt_ws = load_checkpoint(snap_c, opt_state=True,
+                                        opt_state_ws=True)
+    ws_step = load_host_state(snap_c)["ws_step"]
+    _check(opt["count"] == 3 and opt_ws["count"] == 3 and ws_step == 3
+           and sol_c.ws_step == 3, f"main.train_alter: optimizer counts "
+           f"{opt['count']} / {opt_ws['count']}, ws_step {ws_step}")
+    losses_c = np.asarray(sol_c.stats["train"]["losses"])
+    _check(np.isfinite(losses_c).all(), "main.train_alter losses")
+    rates["alternating_prefetch"] = cli_rates(sol_c)
+    shutil.rmtree(out_c)
+    print(f"[train-cli] main.train_alter: 4 iterations (supervised 0-2, weak "
+          f"1-3); launches {counts_c} (1 + 1 + 1 per supervised and per weak"
+          f" step, 2 + 2 + 0 per evaluation pass), pool forward by path "
+          f"{paths_c}; two optimizer states, counts {opt['count']} and "
+          f"{opt_ws['count']}, ws_step {ws_step}", flush=True)
+
+    # 11d: both regimes with and without the prefetch thread at PyTorch's
+    # defaults (cuDNN TF32 convs, non-deterministic cuDNN), as a user
+    # trains; then the feed with DEVICE_PREP off
+    rates = {f"{k}_tf32_off": v for k, v in rates.items()}
+    with pytorch_defaults():
+        for tag, fn, extra in (
+                ("combined", main_train.main, ()),
+                ("alternating", main_alter.main,
+                 ("--s_end_iter", "2", "--ws_start_iter", "1"))):
+            for pf in ("--prefetch", "--no_prefetch"):
+                name = f"{tag}_{pf[2:]}"
+                out = os.path.join(tmpdir, name)
+                sol, _ = train_cli(fn, argv(out, 4, pf, *extra, snap=100,
+                                            test=100), logfile(name))
+                rates[name] = cli_rates(sol)
+                shutil.rmtree(out)      # a snapshot is ~330 MB
+    layer = RoIDataLayerJoint(sol_a.roidb_train_s, sol_a.roidb_train_ws,
+                              "VGGnet_train", sol_a.cfg, sol_a.eng.canvas_hw,
+                              rng=np.random.RandomState(0),
+                              device_prep=False)
+    feed_ms, nbytes = [], []
+    for _ in range(4):
+        t1 = time.perf_counter()
+        blobs = layer.forward()
+        feed_ms.append((time.perf_counter() - t1) * 1e3)
+        nbytes.append(sum(v.nbytes for v in blobs.values()))
+    rates["combined_host_prep_feed"] = {
+        "feed_ms_host": float(np.median(feed_ms[1:])),
+        "upload_bytes": int(max(nbytes))}
+    for tag, r in rates.items():
+        print(f"[train-cli] {tag}: " + ", ".join(
+            f"{k} {v:.3f}" if isinstance(v, float) else f"{k} {v}"
+            for k, v in r.items()) + f"; {smi}", flush=True)
+    prep = check_device_prep(sol_a, smi)
+
+    # 11e: kernels vs plain on this path: periodic_eval from the
+    # iteration-6 snapshot through the kernels and with plain_ops
+    evals = {}
+    for plain in (False, True):
+        out = os.path.join(tmpdir, f"eval_from_snapshot_{plain}")
+        os.makedirs(out)
+        shutil.copytree(os.path.join(out_a, snap), os.path.join(out, snap))
+        with open(logfile(f"periodic_eval_plain_{plain}"), "w") as f, \
+                contextlib.redirect_stdout(f):
+            solver = _build_solver(
+                "VGGnet_train", build_detector("VGGnet_train", device="cuda"),
+                sol_a.roidb_train_s, sol_a.roidb_train_ws,
+                sol_a.imdb_test, sol_a.roidb_test, out, None, "adam",
+                sol_a.cfg.TRAIN.LEARNING_RATE, "const", False, CLI_ITERS,
+                sol_a.cfg, "SNUBH", sol_a.eng.canvas_hw, None,
+                ("mal_max", "mal_max"), False, True, eval_batch=BATCH,
+                device="cuda", plain_ops=plain)
+            reset_counts()
+            test_loss = solver.periodic_eval(CLI_ITERS - 1, 1e-3,
+                                             np.zeros(6), [])
+            solver.logger.close()
+            torch.cuda.synchronize()
+        counts = read_counts()
+        if not plain:
+            check_counts(counts, per_eval, "periodic_eval (kernels)")
+            pool_st = eval_pool_stats(solver)
+        with open(os.path.join(out, "test", "detections.pkl"), "rb") as f:
+            evals[plain] = (test_loss, pickle.load(f))
+        shutil.rmtree(out)
+    shutil.rmtree(out_a)
+    same = np.array_equal(evals[False][0], evals[True][0])
+    for j in (1, 2):
+        for i in range(EVAL_IMAGES):
+            same &= np.array_equal(np.asarray(evals[False][1][j][i]),
+                                   np.asarray(evals[True][1][j][i]))
+    print(f"[parity] periodic_eval from the iteration-{CLI_ITERS} snapshot "
+          f"(TF32 off): all_boxes and test losses through the kernels vs "
+          f"plain_ops=True: {'equal' if same else 'differ'} (test losses "
+          f"{evals[False][0].round(5).tolist()})", flush=True)
+    _check(same, "periodic_eval through the kernels differs from the plain "
+           "run")
+    print(f"[train-cli] phase 11: {time.perf_counter() - t0:.1f} s", flush=True)
+    return {"launches": {"train_cli": counts_a, "train_cli_resume": counts_b,
+                         "train_alter_cli": counts_c},
+            "rates": rates, "resume": resume, "device_prep": prep,
+            "peak_bytes": peak, "eval_pool": pool_st,
+            "losses": losses.tolist(),
+            "test_losses": [e["test_loss"] for e in sol_a.stats["eval"]]}
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         _fail("torch.cuda.is_available() is False: this smoke needs a card")
+    # exact resume under torch.use_deterministic_algorithms (phase 11)
+    # needs cuBLAS's fixed workspace, set before its first call
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    phase("0 (import the port)")
     sys.path.insert(0, REPO)
+    if not os.path.isdir(os.path.join(REPO, "wssdl_bus_tpu_torch")):
+        _fail(f"the port package wssdl_bus_tpu_torch is not beside this "
+              f"script in {REPO}: run it from a checkout of the repository")
     from wssdl_bus_tpu_torch.config import Config
     from wssdl_bus_tpu_torch.data.augment import max_canvas
     from wssdl_bus_tpu_torch.models.convert import he_init_
@@ -1689,6 +2186,7 @@ def main() -> int:
     for var in STEM_PATHS.values():     # the default paths run without them
         os.environ.pop(var, None)
     # phase 1: device
+    phase("1 (device)")
     kind = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
     smi = subprocess.run(
@@ -1700,6 +2198,7 @@ def main() -> int:
     print(smi, flush=True)
 
     # phase 2: build
+    phase("2 (build)")
     t0 = time.perf_counter()
     _build.build_all(verbose=True)
     print(f"[build] {len(_build.SOURCES)} sources built for sm_90a in "
@@ -1718,11 +2217,13 @@ def main() -> int:
           f"{sorted({r.shape for r in requests})}", flush=True)
 
     # phase 3: kernels against their plain versions, and the pool
+    phase("3 (kernels vs plain)")
     # forward's direct path at a map too large for its shared-memory path
     stats = check_kernels(eng, requests, net)
     stats["roi_pool_fc"]["per_shape"]["direct"] = check_direct_path()
 
     # phase 4a: the served path through the kernels, counters around it
+    phase("4a (served path)")
     reset_counts()
     served_1 = serve(eng, requests[:BATCH_1_REQUESTS], net, 1)
     served_8 = serve(eng, requests, net, BATCH)
@@ -1751,6 +2252,7 @@ def main() -> int:
           flush=True)
 
     # phase 4b: timing and peak memory (PyTorch defaults: TF32 convs)
+    phase("4b (serving times)")
     perf = {}
     for b in (1, BATCH):
         perf[b] = t = time_serving(eng, requests, net, b)
@@ -1764,6 +2266,7 @@ def main() -> int:
         profile_step(eng, requests, net, out_dir)
 
     # phase 5: the training path, default TRAIN settings
+    phase("5 (training path)")
     tcfg = Config()
     t = tcfg.TRAIN
     tmp = tempfile.TemporaryDirectory()
@@ -1783,6 +2286,7 @@ def main() -> int:
           f"adam lr {t.LEARNING_RATE}, MIL {teng.selector_pair}", flush=True)
 
     # phase 5a: NMS at the combined and the MIL step's candidates, and the
+    phase("5a (training kernels)")
     # backward kernel at the step's shapes
     for tag, batch in (("train", joint[0]), ("mil", weak)):
         stats["nms_keep"]["per_shape"][tag] = check_nms(
@@ -1792,6 +2296,7 @@ def main() -> int:
                                                           torch.float32)
 
     # phase 5b: 3 combined steps + 1 MIL step, counters around them
+    phase("5b (training steps)")
     before = {k: v.clone() for k, v in tmodel.state_dict().items()}
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
@@ -1829,6 +2334,7 @@ def main() -> int:
         profile_train(teng, joint[-1], out_dir)
 
     # phase 7: the stem kernels at the served and the training shapes
+    phase("7 (stem kernels)")
     serve_x = torch.as_tensor(_packed(eng, requests, net)[0], device="cuda")
     train_x = torch.as_tensor(joint[0]["data"], device="cuda")
     stem_stats = {"serve": check_stem_kernels(model, serve_x, "serve B=8",
@@ -1838,6 +2344,7 @@ def main() -> int:
     del serve_x, train_x
 
     # phase 8: the bf16 output option of the ROI pool at the training
+    phase("8 (bf16 pool)")
     # shapes, and the f32 forward on the same ROIs
     train_fwd = check_train_forward(teng, groups)
     stats["roi_pool_fc_bf16"] = train_fwd["bf16"]
@@ -1853,13 +2360,16 @@ def main() -> int:
     del groups
 
     # phase 9: the opt-in stem paths, serving and training
+    phase("9 (stem paths)")
     stem_runs = {name: run_stem_path(name, eng, requests, net, teng, joint,
                                      weak, smi) for name in STEM_PATHS}
 
     # phase 10: the evaluation entry point over a synthetic imdb
+    phase("10 (evaluation entry point)")
     evaluation = run_evaluation(tmp.name, out_dir, smi)
 
     # phase 6 (and 9): parity with the plain versions, TF32 off on both
+    phase("6 (parity, TF32 off)")
     # sides so the trunks are bit-identical
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1888,6 +2398,13 @@ def main() -> int:
         parity[name]["vs_default_stem"] = stem_distance(
             eng, requests, net, det_default, name)
     check_eval_parity(evaluation, tmp.name)
+
+    # phase 11: the training entry points (TF32 off from here on)
+    phase("11 (training entry points)")
+    training_cli = run_training_entry_points(tmp.name, evaluation["data"],
+                                             out_dir, smi)
+    stats["roi_pool_fc"]["per_shape"]["eval_step"] = training_cli.pop(
+        "eval_pool")
     tmp.cleanup()
 
     paths = {"serve": serve_launches, "train": train_launches,
@@ -1897,6 +2414,7 @@ def main() -> int:
     for name, run in stem_runs.items():
         paths[f"serve_{STEM_PATHS[name]}"] = run["serve_launches"]
         paths[f"train_{STEM_PATHS[name]}"] = run["train_launches"]
+    paths.update(training_cli.pop("launches"))
 
     def launches(name):
         by_path = {p: c[name] for p, c in paths.items()}
@@ -1974,6 +2492,7 @@ def main() -> int:
                       "evaluation": {k: {m: v for m, v in r.items()
                                          if m != "launches"}
                                      for k, r in evaluation["runs"].items()},
+                      "training_entry_points": training_cli,
                       "stem_paths": {STEM_PATHS[n]: {
                           k: v for k, v in r.items() if k in (
                               "serving", "training")}
@@ -1985,5 +2504,19 @@ def main() -> int:
     return 0
 
 
+def run() -> int:
+    """``main()``, with any exception reported on stdout with the phase it
+    stopped in (an exception's traceback goes to stderr only)."""
+    import traceback
+
+    try:
+        return main()
+    except SystemExit:
+        raise
+    except BaseException as e:  # noqa: BLE001 - reported, then exit 1
+        traceback.print_exc()
+        _fail(f"{type(e).__name__}: {e}")
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(run())

@@ -179,6 +179,71 @@ def test_evaluation_loads_no_jax_module(script):
     assert [m for m in res["modules"] if _forbidden(m)] == []
 
 
+_TRAIN_CLI_ON_CPU = """
+import json, os, shutil, sys, tempfile
+import numpy as np
+import torch
+from PIL import Image
+torch.set_num_threads(2)
+from wssdl_bus_tpu_torch.main import train
+d = tempfile.mkdtemp()   # removed at the end: snapshots are ~330 MB each
+for sub in ("TIFFImages", "Annotations", "ImageSets/Main"):
+    os.makedirs(os.path.join(d, sub))
+rng = np.random.RandomState(0)
+for k in range(2):
+    Image.fromarray(rng.randint(0, 255, (60, 80)).astype(np.uint8)).save(
+        os.path.join(d, "TIFFImages", f"t{k}.tif"))
+    with open(os.path.join(d, "Annotations", f"t{k}.xml"), "w") as f:
+        f.write("<annotation><object><name>benign</name><difficult>0"
+                "</difficult><bndbox><xmin>5</xmin><ymin>5</ymin><xmax>40"
+                "</xmax><ymax>35</ymax></bndbox></object><object><name>"
+                "__background__</name><difficult>0</difficult><bndbox><xmin>"
+                "1</xmin><ymin>30</ymin><xmax>80</xmax><ymax>60</ymax>"
+                "</bndbox></object><BIRADS><diag>1</diag></BIRADS>"
+                "</annotation>")
+with open(os.path.join(d, "ImageSets", "Main", "test.txt"), "w") as f:
+    f.write("t0\\nt1\\n")
+npy = os.path.join(d, "vgg.npy")
+np.save(npy, {"conv5_3": {"biases": np.zeros(512, np.float32)}},
+        allow_pickle=True)
+out = os.path.join(d, "run")
+solver = train.main([
+    "--max_iters", "2", "--output_dir", out, "--data_dir", d, "--device",
+    "cpu", "--pretrained_model", npy, "--prefetch", "--set_cfgs",
+    "TRAIN.SCALES", "(64,)", "TRAIN.MAX_SIZE", "96", "TEST.SCALES", "(64,)",
+    "TEST.MAX_SIZE", "96", "ANCHOR_SCALES", "(2, 4, 8)",
+    "TRAIN.RPN_PRE_NMS_TOP_N", "50", "TRAIN.RPN_POST_NMS_TOP_N", "8",
+    "TRAIN.BATCH_SIZE", "8", "TEST.RPN_PRE_NMS_TOP_N", "50",
+    "TEST.RPN_POST_NMS_TOP_N", "8", "TRAIN.SNAPSHOT_ITERS", "1",
+    "TRAIN.TEST_ITERS", "2", "TRAIN.DISPLAY", "1"])
+files = sorted(os.listdir(out))
+shutil.rmtree(d)
+print(json.dumps({"modules": sorted(sys.modules), "files": files,
+                  "eval": solver.stats["eval"][0]["test_loss"]}))
+"""
+
+
+def test_training_cli_loads_no_jax_module():
+    """``python -m wssdl_bus_tpu_torch.main.train`` (its ``main``) on the
+    CPU for two iterations, with a pretrained ``.npy``, device prep and the
+    prefetch thread, in a fresh process."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", _TRAIN_CLI_ON_CPU], cwd=REPO,
+                         env=env, capture_output=True, text=True,
+                         timeout=300, check=True)
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert np.isfinite(res["eval"]).all()
+    assert {"VGGnet_fast_rcnn_iter_1", "VGGnet_fast_rcnn_iter_2",
+            "log.txt", "test"} <= set(res["files"])
+    for m in ("wssdl_bus_tpu_torch.train.solver",
+              "wssdl_bus_tpu_torch.train.schedules",
+              "wssdl_bus_tpu_torch.models.pretrained",
+              "wssdl_bus_tpu_torch.ops.device_prep",
+              "wssdl_bus_tpu_torch.data.loader"):
+        assert m in res["modules"], m
+    assert [m for m in res["modules"] if _forbidden(m)] == []
+
+
 def _imports(path):
     with open(path) as f:
         tree = ast.parse(f.read(), path)

@@ -163,6 +163,7 @@ def _launch_counted(wrapper, path, fn):
     (2, 37, 7, 9, 12),       # small map, C not a multiple of 32
     (1, 128, 38, 56, 512),   # the training groups: supervised
     (2, 2000, 38, 56, 512),  # and weak
+    (8, 128, 38, 56, 512),   # the in-training eval step: 8 images x 128
     (2, 300, 38, 51, 20),    # C % 16 != 0: a 4-channel tail slice
     (1, 300, 38, 51, 516),
     (8, 300, 63, 63, 512),   # 8-channel slices

@@ -165,7 +165,7 @@ def test_optimizer_matches_optax(rng, opt_name):
     state = tx.init(jp)
     tp = {k: torch.nn.Parameter(torch.from_numpy(v.copy()))
           for k, v in init.items()}
-    opt = Optimizer(opt_name, [tp["a"], tp["b"]], momentum=0.9)
+    opt = Optimizer(opt_name, [("a", tp["a"]), ("b", tp["b"])], momentum=0.9)
     for g, lr in zip(grads, lrs):
         state.hyperparams["learning_rate"] = jnp.float32(lr)
         upd, state = tx.update({k: jnp.asarray(v) for k, v in g.items()},

@@ -56,8 +56,8 @@ from wssdl_bus_tpu.models.detector import rpn_softmax as jax_softmax
 from wssdl_bus_tpu.train.engine import Engine as JaxEngine
 from wssdl_bus_tpu.train.engine import make_optimizer, vgg_frozen_mask
 from wssdl_bus_tpu_torch.config import Config
-from wssdl_bus_tpu_torch.models.convert import (he_tree, params_from_jax,
-                                                params_to_jax)
+from wssdl_bus_tpu_torch.models.convert import (he_tree, opt_state_from_jax,
+                                                params_from_jax, params_to_jax)
 from wssdl_bus_tpu_torch.models.detector import build_detector, rpn_softmax
 from wssdl_bus_tpu_torch.ops.proposal_target import num_candidates
 from wssdl_bus_tpu_torch.train.engine import Engine, StepDraws
@@ -178,22 +178,13 @@ def _combined_draws(s, key):
 
 
 def _load_jax_state(eng, jvars, jopt):
-    """Put the JAX side's parameters and Adam state into the port."""
-    def sd(tree):
-        return params_from_jax({part: {"params": jax.tree.map(
-            np.asarray, tree[part])} for part in ("trunk", "head")})
-
-    eng.model.load_state_dict(sd({p: jvars[p]["params"]
-                                  for p in ("trunk", "head")}))
-    adam, = [x for x in jax.tree_util.tree_leaves(
-        jopt, is_leaf=lambda x: hasattr(x, "nu")) if hasattr(x, "nu")]
-    mu, nu = sd(adam.mu), sd(adam.nu)
-    names = {id(p): n for n, p in eng.model.named_parameters()}
-    opt = eng.opt
-    opt.count = int(adam.count)
-    for k, p in enumerate(opt.params):
-        opt.mu[k] = mu[names[id(p)]].clone()
-        opt.nu[k] = nu[names[id(p)]].clone()
+    """Put the JAX side's parameters and Adam state into the port
+    (``models/convert.py:opt_state_from_jax``)."""
+    eng.model.load_state_dict(params_from_jax(
+        {p: {"params": jax.tree.map(np.asarray, jvars[p]["params"])}
+         for p in ("trunk", "head")}))
+    eng.opt.load_state_dict(opt_state_from_jax(jax.tree.map(np.asarray,
+                                                            jopt)))
 
 
 def _check_params(port, jvars, before):

@@ -2,6 +2,7 @@
 ``wssdl_bus_tpu/main/common.py``; the reference's ``code/main/train.py:18-48``
 arguments).
 
+Used by ``main/test.py``, ``main/train.py`` and ``main/train_alter.py``.
 What the port has no path for yet raises ``NotImplementedError`` naming
 the ROADMAP item, never silently ignored: ``--bf16`` (A7), ``--mesh_data``
 / ``--mesh_model`` > 1 (A10), ``Resnet_*`` networks (A6), ``--remat``.  The JAX
@@ -75,13 +76,17 @@ def check_ported(args) -> None:
             "yet (ROADMAP.md A6)")
 
 
-def build_model(args):
+def build_model(args, freeze_stem: bool = True):
     """The one CLI -> detector construction, on ``args.device`` (PyTorch's
-    default init: a snapshot or converted weights are loaded into it)."""
+    default init: a snapshot or converted weights are loaded into it).
+    ``freeze_stem`` False lets a training network's conv1/conv2 train
+    (``--unfreeze_stem``); the stem kernels then never run in training
+    (``models/detector.py:stem_is_frozen``)."""
     from wssdl_bus_tpu_torch.models.detector import build_detector
 
     check_ported(args)
-    return build_detector(args.network, num_classes=3, device=args.device)
+    return build_detector(args.network, num_classes=3, device=args.device,
+                          freeze_stem=freeze_stem)
 
 
 def add_train_args(parser: argparse.ArgumentParser):
@@ -93,7 +98,10 @@ def add_train_args(parser: argparse.ArgumentParser):
     parser.add_argument("--pretrained_model", default=None, type=str,
                         help="path to an ImageNet .npy weight dict")
     parser.add_argument("--unfreeze_stem", action="store_true",
-                        help="let VGG conv1/conv2 train")
+                        help="let VGG conv1/conv2 train (the reference "
+                             "freezes them: right with ImageNet weights, "
+                             "fatal from scratch, where a frozen random stem "
+                             "leaves the trunk featureless)")
     parser.add_argument("--opt", default="adam", type=str,
                         help="adam / amsgrad / sgd")
     parser.add_argument("--lr", default=5e-4, type=float)

@@ -13,6 +13,12 @@ follow the same path (``trunk.backbone.conv1_1.conv.weight``):
 
 fc6's rows are in NHWC (h, w, c) flatten order on both sides (the port's
 ROI pool writes the same order), so no row permutation is needed.
+
+:func:`opt_state_from_jax` carries an optax optimizer state across the
+same way, into ``train/engine.py:Optimizer.load_state_dict``'s format.
+:func:`reference_init_` draws the JAX package's initialisation (truncated
+normal, std 0.01; 0.001 for ``bbox_pred``; zero biases) from a seeded
+``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -109,4 +115,71 @@ def he_init_(model: torch.nn.Module, seed: int,
     """Load :func:`he_tree` weights of ``seed`` into ``model`` in place."""
     tree = he_tree(params_to_jax(model.state_dict()), seed, input_scale)
     model.load_state_dict(params_from_jax(tree))
+    return model
+
+
+def _find(tree, attr: str):
+    """The first NamedTuple in a nested optax state (NamedTuples, tuples,
+    lists, dicts) with the field ``attr``, or None."""
+    if attr in getattr(tree, "_fields", ()):
+        return tree
+    if isinstance(tree, dict):
+        kids = list(tree.values())
+    elif isinstance(tree, (tuple, list)):
+        kids = list(tree)
+    else:
+        return None
+    for kid in kids:
+        hit = _find(kid, attr)
+        if hit is not None:
+            return hit
+    return None
+
+
+def opt_state_from_jax(opt_state) -> dict:
+    """An optax state of the JAX package's ``make_optimizer`` (adam,
+    amsgrad or Nesterov SGD under ``inject_hyperparams``, its moments trees
+    ``{"trunk": ..., "head": ...}`` of numpy arrays) -> the port's
+    ``Optimizer.state_dict()`` format: {"name", "count", "mu", "nu",
+    "nu_max"} with each moment keyed by state-dict name (frozen parameters'
+    moments included; an optimizer takes the names it holds)."""
+    def named(tree):
+        return params_from_jax({part: {"params": tree[part]}
+                                for part in _PARTS})
+
+    for name, attr in (("amsgrad", "nu_max"), ("adam", "nu"),
+                       ("sgd", "trace")):
+        node = _find(opt_state, attr)
+        if node is not None:
+            break
+    else:
+        raise ValueError("no adam / amsgrad / sgd state found")
+    if name == "sgd":
+        top = _find(opt_state, "hyperparams")
+        count = int(np.asarray(top.count)) if top is not None else 0
+        return {"name": name, "count": count, "mu": named(node.trace),
+                "nu": None, "nu_max": None}
+    return {"name": name, "count": int(np.asarray(node.count)),
+            "mu": named(node.mu), "nu": named(node.nu),
+            "nu_max": named(node.nu_max) if name == "amsgrad" else None}
+
+
+@torch.no_grad()
+def reference_init_(model: torch.nn.Module, seed: int) -> torch.nn.Module:
+    """The JAX package's initialisation in place: every kernel truncated
+    normal (std 0.01, cut at 2 std; std 0.001 for ``bbox_pred``, its
+    ``models/vgg.py:83``), every bias zero, drawn from a CPU
+    ``torch.Generator`` seeded with ``seed`` in sorted state-dict order."""
+    gen = torch.Generator().manual_seed(seed)
+    sd = model.state_dict()
+    for key in sorted(sd):
+        t = sd[key]
+        if key.endswith(".weight"):
+            std = 0.001 if ".bbox_pred." in key else 0.01
+            val = torch.nn.init.trunc_normal_(
+                torch.empty(t.shape), std=std, a=-2 * std, b=2 * std,
+                generator=gen)
+        else:
+            val = torch.zeros(t.shape)
+        t.copy_(val)
     return model

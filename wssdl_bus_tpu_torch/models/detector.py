@@ -160,14 +160,16 @@ def freeze_vgg_stem(model: FasterRCNN) -> FasterRCNN:
     return model
 
 
-def build_detector(name: str, num_classes: int = 3,
-                   device=None) -> FasterRCNN:
+def build_detector(name: str, num_classes: int = 3, device=None,
+                   freeze_stem: bool = True) -> FasterRCNN:
     """Factory mirroring the JAX package's ``build_detector`` names:
     'VGGnet_test' builds the VGG16 detector in eval mode, 'VGGnet_train'
     (and '_alter' variants) in training mode with conv1/conv2 frozen
-    (:func:`freeze_vgg_stem`), on ``device`` (CUDA unless named; raises
-    without a card).  Weights are PyTorch's default init: load converted or
-    seeded weights with ``models/convert.py``."""
+    (:func:`freeze_vgg_stem`) unless ``freeze_stem`` is False (from-scratch
+    runs: a frozen random stem leaves the trunk featureless), on ``device``
+    (CUDA unless named; raises without a card).  Weights are PyTorch's
+    default init: load converted or seeded weights with
+    ``models/convert.py``."""
     if name.startswith("Resnet"):
         raise NotImplementedError(
             f"{name}: the ResNet backbones are not ported yet (the ResNet "
@@ -178,5 +180,5 @@ def build_detector(name: str, num_classes: int = 3,
     model = FasterRCNN(num_classes=num_classes).to(
         device=dev, memory_format=torch.channels_last)
     if "_train" in name:
-        return freeze_vgg_stem(model).train()
+        return (freeze_vgg_stem(model) if freeze_stem else model).train()
     return model.eval()

@@ -16,6 +16,14 @@ the MIL bag loss, one backward and one optimizer update.  The pool's
 backward is a CUDA kernel (``wssdl_roi_pool_bwd``, ``ops/roi_pool_cuda.py``).
 ``Engine.train_step_mil`` is the alternating regime's weak step
 (``_train_step_mil_impl``): the MIL loss alone over weak images.
+``Engine.eval_step`` is the in-training evaluation forward (``eval_step``):
+TEST proposal budgets, every image supervised, no GT appended to the ROI
+candidates, the head in eval mode, and per-image losses.
+
+A training batch carries either the host-prepared ``data`` blob or the
+device-prep staging blobs ``raw`` (uint8) + ``prep``, which the step
+finishes on the device (``ops/device_prep.py``), as the JAX package's
+``Engine._batch_data`` does.
 
 Every random draw of a step (anchor and ROI sampling uniforms, dropout
 masks) can be passed in as :class:`StepDraws`, as the tests do with the JAX
@@ -35,10 +43,13 @@ from wssdl_bus_tpu_torch.models.detector import (FasterRCNN, rpn_softmax,
                                                  stem_is_frozen)
 from wssdl_bus_tpu_torch.ops.anchor_target import anchor_target_layer_joint
 from wssdl_bus_tpu_torch.ops.anchors import shifted_anchors
+from wssdl_bus_tpu_torch.ops.device_prep import (net_divisor_for,
+                                                 prep_device_batch)
 from wssdl_bus_tpu_torch.ops.nms import nms_mask
 from wssdl_bus_tpu_torch.ops.nms_cuda import nms_keep
 from wssdl_bus_tpu_torch.ops.proposal import proposal_layer, proposals_to_rois
 from wssdl_bus_tpu_torch.ops.proposal_target import proposal_target_layer
+from wssdl_bus_tpu_torch.ops.roi_pool import rois_with_batch_index
 from wssdl_bus_tpu_torch.ops.roi_pool_cuda import roi_pool_fc, roi_pool_fc_plain
 from wssdl_bus_tpu_torch.train import losses as L
 from wssdl_bus_tpu_torch.utils import resolve_device
@@ -69,13 +80,18 @@ class Optimizer:
     A parameter without a gradient in a step (None) counts as a zero
     gradient, as in optax, so its moments still decay and it still moves.
     amsgrad takes the running max of the BIAS-CORRECTED second moment, as
-    optax does (``torch.optim.Adam(amsgrad=True)`` does not)."""
+    optax does (``torch.optim.Adam(amsgrad=True)`` does not).
+
+    ``params``: (name, tensor) pairs; the state (:meth:`state_dict`) is
+    keyed by these names, so a snapshot restores onto a fresh model."""
 
     def __init__(self, name: str, params, momentum: float = 0.9):
         if name not in ("adam", "amsgrad", "sgd"):
             raise NotImplementedError(name)
         self.name = name
-        self.params = list(params)
+        params = list(params)
+        self.names = [n for n, _ in params]
+        self.params = [p for _, p in params]
         self.b1, self.b2, self.eps, self.momentum = 0.9, 0.999, 0.1, momentum
         self.count = 0
         zeros = lambda: [torch.zeros_like(p) for p in self.params]  # noqa
@@ -86,6 +102,36 @@ class Optimizer:
     def zero_grad(self):
         for p in self.params:
             p.grad = None
+
+    def state_dict(self) -> dict:
+        """{"name", "count", "mu", "nu", "nu_max"}, each moment a dict
+        parameter name -> tensor (None where the optimizer has none)."""
+        def named(ts):
+            return None if ts is None else dict(zip(self.names, ts))
+        return {"name": self.name, "count": self.count,
+                "mu": named(self.mu), "nu": named(self.nu),
+                "nu_max": named(self.nu_max)}
+
+    def load_state_dict(self, state: dict) -> None:
+        """Restore :meth:`state_dict` output (or ``models/convert.py:
+        opt_state_from_jax``'s); every parameter of this optimizer must be
+        named in it (names it does not hold are ignored)."""
+        if state["name"] != self.name:
+            raise ValueError(f"optimizer state is {state['name']!r}, this "
+                             f"optimizer is {self.name!r}")
+        self.count = int(state["count"])
+        for field in ("mu", "nu", "nu_max"):
+            mine = getattr(self, field)
+            if mine is None:
+                continue
+            saved = state[field]
+            missing = [n for n in self.names if n not in saved]
+            if missing:
+                raise KeyError(f"optimizer state lacks {field} of "
+                               f"{missing[:3]}")
+            for k, (n, p) in enumerate(zip(self.names, self.params)):
+                mine[k] = torch.as_tensor(saved[n]).to(
+                    device=p.device, dtype=p.dtype).clone()
 
     @torch.no_grad()
     def step(self, lr: float):
@@ -118,13 +164,20 @@ def make_optimizer(opt_name: str, cfg: Config, model: torch.nn.Module):
     """The optimizer over the model's trainable parameters (frozen ones,
     ``requires_grad`` False, are left out and never change)."""
     return Optimizer(opt_name,
-                     [p for p in model.parameters() if p.requires_grad],
+                     [(n, p) for n, p in model.named_parameters()
+                      if p.requires_grad],
                      momentum=cfg.TRAIN.MOMENTUM)
 
 
 def _batch_tensors(batch: dict, device) -> dict:
-    """A minibatch dict (numpy or tensors) -> tensors on ``device``."""
+    """A minibatch dict (numpy or tensors) -> tensors on ``device``; the
+    device-prep ``raw`` blob travels as uint8."""
     out = {}
+    if "raw" in batch:
+        out["raw"] = torch.as_tensor(batch["raw"], dtype=torch.uint8,
+                                     device=device)
+        out["prep"] = torch.as_tensor(batch["prep"], dtype=torch.float32,
+                                      device=device)
     for k in ("data", "gt_boxes", "im_info"):
         if k in batch:
             out[k] = torch.as_tensor(batch[k], dtype=torch.float32,
@@ -207,6 +260,17 @@ class Engine:
             self._opt = make_optimizer(self.opt_name, self.cfg, self.model)
         return self._opt
 
+    def _batch_data(self, b: dict) -> torch.Tensor:
+        """The [B, H, W, 3] image blob: as shipped (``data``), or finished
+        on the device from the uint8 staging blobs (``raw`` + ``prep``,
+        ``ops/device_prep.py``)."""
+        if "data" in b:
+            return b["data"]
+        return prep_device_batch(
+            b["raw"], b["prep"], self.canvas_hw,
+            self.cfg.PIXEL_MEAN / 255.0,
+            net_divisor_for(self.model.backbone, self.cfg.PIXEL_STD))
+
     def _train_trunk(self, data):
         """The trunk in training mode: the stem kernels may run only while
         conv1/conv2 are frozen (``models/detector.py:stem_is_frozen``)."""
@@ -277,7 +341,7 @@ class Engine:
         gen = self.generator
         b = _batch_tensors(batch, self.device)
         self.model.train()
-        feat, rpn_score, rpn_bbox = self._train_trunk(b["data"])
+        feat, rpn_score, rpn_bbox = self._train_trunk(self._batch_data(b))
         at = anchor_target_layer_joint(
             b["gt_boxes"], b["num_gt_boxes"], b["im_info"], self.anchors,
             n_s, uniforms=draws.anchor_u, generator=gen, **self._at_kwargs)
@@ -342,7 +406,7 @@ class Engine:
         draws = draws or StepDraws()
         b = _batch_tensors(batch, self.device)
         self.model.train()
-        feat, rpn_score, rpn_bbox = self._train_trunk(b["data"])
+        feat, rpn_score, rpn_bbox = self._train_trunk(self._batch_data(b))
         props = self._proposals(rpn_score, rpn_bbox, b["im_info"], cfg.TRAIN)
         cls_ws, _ = self.model.apply_head(
             self._pool_for_head(feat, props.boxes), draws.keep_ws,
@@ -352,3 +416,66 @@ class Engine:
         mil.backward()
         self.opt.step(cfg.TRAIN.LEARNING_RATE if lr is None else lr)
         return mil.detach()
+
+    # ------------------------------------------------------------------ #
+    @torch.no_grad()
+    def eval_step(self, batch: dict, step: int = 0, draws: StepDraws = None):
+        """The in-training evaluation forward (the JAX package's
+        ``eval_step``, the reference's train_bus.py:792-892): the training
+        pipeline with is_training=False.  Every image is supervised; TEST
+        proposal budgets; ROIs sampled from the proposals with no GT
+        appended; the head in eval mode (no dropout).  Losses are PER IMAGE
+        (each ``StepLosses`` field [B]), the MIL bag CE over each image's
+        sampled ROIs with the adaptive scale at ``step`` included.
+        -> (losses, rois5 [B*R, 5], cls_prob [B*R, C], bbox_pred
+        [B*R, 4C], labels [B*R]; -1 marks an unfilled sampler slot)."""
+        cfg = self.cfg
+        draws = draws or StepDraws()
+        gen = self.generator
+        b = _batch_tensors(batch, self.device)
+        n = b["im_info"].shape[0]
+        self.model.eval()
+        feat, rpn_score, rpn_bbox = self.model.apply_trunk(
+            self._batch_data(b), plain_ops=self.plain_ops)
+        at = anchor_target_layer_joint(
+            b["gt_boxes"], b["num_gt_boxes"], b["im_info"], self.anchors, n,
+            uniforms=draws.anchor_u, generator=gen, **self._at_kwargs)
+        props = self._proposals(rpn_score, rpn_bbox, b["im_info"], cfg.TEST)
+        samples = proposal_target_layer(
+            props.boxes, props.valid, b["gt_boxes"], b["num_gt_boxes"],
+            uniforms=draws.roi_u, generator=gen, include_gt=False,
+            **self._pt_kwargs)
+        cls_score, bbox_pred = self.model.apply_head(
+            self._pool_for_head(feat, samples.rois))
+
+        a, r = self.num_anchors, cfg.TRAIN.BATCH_SIZE
+        mil_scale = (L.mil_adaptive_scale(step)
+                     if cfg.TRAIN.WS_LOSS_USE_ADAPTIVE_SCALE_FACTOR
+                     else cfg.TRAIN.WS_LOSS_SCALE_FACTOR)
+        bag_labels = b["im_info"][:, 3].to(torch.int64)
+        per = []
+        for i in range(n):
+            im = slice(i, i + 1)
+            sl = slice(i * r, (i + 1) * r)
+            rpn_cls = L.rpn_class_loss(rpn_score[im], at.labels[im], a)
+            rpn_box = L.rpn_box_loss(
+                rpn_bbox[im], at.bbox_targets[im], at.inside_weights[im],
+                at.outside_weights[im], 1, a)
+            labels_i = samples.labels[i].reshape(-1)
+            rcnn_cls = L.rcnn_class_loss(cls_score[sl], labels_i)
+            rcnn_box = L.rcnn_box_loss(
+                bbox_pred[sl], samples.bbox_targets[i].reshape(r, -1),
+                samples.inside_weights[i].reshape(r, -1),
+                samples.outside_weights[i].reshape(r, -1), labels_i)
+            bag = get_bag_logits(cls_score[sl].reshape(1, r, -1),
+                                 (labels_i >= 0)[None], bag_labels[im],
+                                 self.selector_pair)
+            mil = L.mil_class_loss(bag, bag_labels[im], cfg.TRAIN.WS_MAL_PCT,
+                                   mil_scale)
+            per.append((rpn_cls + rpn_box + rcnn_cls + rcnn_box, rpn_cls,
+                        rpn_box, rcnn_cls, rcnn_box, mil))
+        losses = StepLosses(*(torch.stack([p[f] for p in per])
+                              for f in range(len(StepLosses._fields))))
+        return (losses, rois_with_batch_index(samples.rois),
+                torch.softmax(cls_score, dim=-1), bbox_pred,
+                samples.labels.reshape(-1))

@@ -7,15 +7,14 @@ import torch
 
 def resolve_device(device=None) -> torch.device:
     """The device an entry point runs on: CUDA unless the caller names
-    another.  Raises when no card is present and none was named, so a run
+    another.  Raises when CUDA is wanted and no card is present, so a run
     never drops to the CPU unasked."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device is available; pass device='cpu' to run on "
-                "the CPU")
-        return torch.device("cuda")
-    return torch.device(device)
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' (--device cpu) "
+            "to run on the CPU")
+    return dev
 
 
 def warm_cpu_vector_math() -> None:
