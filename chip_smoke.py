@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving and training paths on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's serving and training paths on one NVIDIA GPU:
+VGG16 (phases 3-12) and the ResNet detectors (phase 13).
 
     python3 chip_smoke.py [--profile]
 
@@ -104,12 +105,42 @@ directory without the port beside it, phase 0 fails so):
      the kernels and with ``plain_ops=True``: all_boxes and test losses
      equal; the pool forward at the eval step's [8, 128] ROIs against its
      plain version, timed;
- 12. a ``{"kernels": [...]}`` line, then the last line
+ 13. the ResNet detectors at full width from seeded He weights (the RPN's
+     1x1 kernels x 0.03), at the served canvas and the default TEST and
+     TRAIN budgets.  13a (run after phase 8, before the evaluation phase's
+     profiler trace): kernel #3 (``roi_pool_grouped``) against its plain
+     version at the served batch of 8 and at the combined step's two groups
+     of ResNet-18 BN (C = 256) and ResNet-50 GN (C = 1024) (both flavors
+     and 64 NaNs planted in the map; ``forward_plan``'s path and grid;
+     CUDA-event and profiler times beside the bound), #4 at the two groups
+     (MIL, dense and tie cotangents, then the five NaN cases, f32).  The
+     rest after phase 11 (TF32 off and deterministic cuDNN except where
+     timed).  ResNet-18 BN (the CLI default): serving through
+     ``im_detect_batch`` + ``report_detections`` (3 requests at batch 1, 8
+     at batch 8: one NMS and one #3 launch per device step, every #3
+     launch on the shared-memory path) with ms/image by stage and peak
+     memory at PyTorch's defaults; 3 combined steps and 1 MIL step (1 + 2
+     + 2 launches of #1 / #3 / #4 a combined step, 1 + 1 + 1 a MIL step;
+     every parameter moved, every running statistic moved by the combined
+     steps and bit for bit unchanged by the MIL step; ms/step by CUDA
+     events and peak memory); the served batch and one combined step
+     through the kernels and with ``plain_ops=True`` (as phase 6, running
+     statistics among the compared tensors).  ResNet-50 GN (bottleneck
+     blocks, GroupNorm, C = 1024): batch-8 serving and one combined step.
+     Then ``main.train --network Resnet_train`` (18,
+     BN) from the He weights as a ResNet ``.npy`` for 3 iterations over the
+     evaluation imdb (evaluation at 3, snapshots at 2 and 3; #3 at the
+     evaluation's [8, 128] ROIs against its plain version, timed beside
+     its bound) and its ``--resume`` from 2 (parameters, running
+     statistics, moments and test losses equal bit for bit), and
+     ``main.test --network Resnet_test`` on the snapshot at batch 8; logs in ``chiprun_out/resnet_*.log``;
+ 12. a ``{"kernels": [...]}`` line (#3 as ``roi_pool_grouped``, its
+     launches from the ResNet paths), then the last line
      ``{"ok": true, "device": {...}}``.
 
 ``--profile`` adds torch.profiler breakdowns (device time by kernel, busy
-share) of the batch-8 serving step and of the combined training step, and
-their Chrome traces in chiprun_out/.
+share) of the batch-8 serving step and of the combined training step, for
+VGG16 and for ResNet-18 BN, and their Chrome traces in chiprun_out/.
 
 Needs one CUDA card; imports nothing of JAX or of the JAX package.
 """
@@ -639,7 +670,7 @@ def time_serving(eng, requests, net, batch, reps: int = 5) -> dict:
             "peak_bytes": torch.cuda.max_memory_allocated()}
 
 
-def profile_step(eng, requests, net, out_dir: str):
+def profile_step(eng, requests, net, out_dir: str, tag: str = ""):
     """``--profile``: torch.profiler over three batch-8 device steps; prints
     device time by kernel and the device's busy share of the window, and
     writes a Chrome trace to ``out_dir``."""
@@ -662,14 +693,16 @@ def profile_step(eng, requests, net, out_dir: str):
               and e.device_type == torch.autograd.DeviceType.CUDA]
     events.sort(key=lambda e: -e.device_time_total)
     busy = sum(e.device_time_total for e in events) / 1e6
-    print(f"[profile] 3 steps of batch {len(requests)}: wall {wall * 1e3:.3f}"
+    print(f"[profile{tag}] 3 steps of batch {len(requests)}: wall "
+          f"{wall * 1e3:.3f}"
           f" ms, device busy {busy * 1e3:.3f} ms ({100 * busy / wall:.1f}%)",
           flush=True)
     for e in events[:15]:
-        print(f"[profile] {e.device_time_total / 3e3:9.4f} ms/step "
+        print(f"[profile{tag}] {e.device_time_total / 3e3:9.4f} ms/step "
               f"x{e.count // 3:<4d} {e.key[:110]}", flush=True)
     os.makedirs(out_dir, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(out_dir, "serve_b8_trace.json"))
+    prof.export_chrome_trace(os.path.join(out_dir,
+                                          f"serve_b8{tag}_trace.json"))
 
 
 def _packed(eng, requests, net):
@@ -705,20 +738,21 @@ def write_roidb(tmpdir: str, seed: int, n_sup: int, n_ws: int):
     return sup, ws, sizes
 
 
-def train_batches(cfg, canvas, sup, ws, n_steps: int):
+def train_batches(cfg, canvas, sup, ws, n_steps: int,
+                  net: str = "VGGnet_train"):
     """``n_steps`` joint minibatches (1 + 2 images each) and one weak-only
-    minibatch, drawn from one RandomState(cfg.RNG_SEED) in that order."""
+    minibatch for ``net``'s pixel scale, drawn from one
+    RandomState(cfg.RNG_SEED) in that order."""
     from wssdl_bus_tpu_torch.data.minibatch import (get_minibatch,
                                                     get_minibatch_joint)
 
     rng = np.random.RandomState(cfg.RNG_SEED)
     n_s, n_w = cfg.TRAIN.IMS_PER_BATCH, cfg.TRAIN.WS_IMS_PER_BATCH
     joint = [get_minibatch_joint(sup[k * n_s:(k + 1) * n_s],
-                                 ws[k * n_w:(k + 1) * n_w], "VGGnet_train",
-                                 cfg, canvas, rng)
+                                 ws[k * n_w:(k + 1) * n_w], net, cfg,
+                                 canvas, rng)
              for k in range(n_steps)]
-    weak = get_minibatch(ws[:n_w], "VGGnet_train", cfg, canvas, True, True,
-                         rng)
+    weak = get_minibatch(ws[:n_w], net, cfg, canvas, True, True, rng)
     return joint, weak
 
 
@@ -767,12 +801,16 @@ BACKWARD_PHASES = ("roi_rows_scan", "roi_rows_compact", "roi_argmax",
                    "roi_gather")
 
 
-def check_backward_kernel(eng, groups, dtype):
-    """Phase 5a (f32 cotangent, kernel #4) and phase 8 (bf16 cotangent, the
-    bf16 output's backward): the backward kernel against its plain version
-    at the combined step's two launches (the supervised group [1, 128] and
-    the weak group [2, 2000] of ROIs on a [38, 56, 512] map) with three
-    cotangent patterns."""
+def check_backward_kernel(eng, groups, dtype, label: str = "",
+                          pattern: str = "mil"):
+    """Phase 5a (f32 cotangent, kernel #4), phase 8 (bf16 cotangent, the
+    bf16 output's backward) and phase 13a (f32, ``label`` the ResNet): the
+    backward kernel against its plain version at the combined step's two
+    launches (the supervised group [1, 128] and the weak group [2, 2000] of
+    ROIs on a [38, 56, C] map) with three cotangent patterns; the step's
+    two launches timed with ``pattern``'s cotangents, the one the step
+    gives the kernel ("mil": the weak group's one row per bag; "dense":
+    every row, as a BatchRenorm head gives it)."""
     import torch
 
     from wssdl_bus_tpu_torch.ops.roi_pool import (active_rows, roi_pool_grad,
@@ -783,7 +821,7 @@ def check_backward_kernel(eng, groups, dtype):
     bf16 = dtype == torch.bfloat16
     kernel = roi_pool_fc_backward_bf16 if bf16 else roi_pool_fc_backward
     plain = roi_pool_grad_bf16 if bf16 else roi_pool_grad
-    tag = "[backward-bf16]" if bf16 else "[backward]"
+    tag = ("[backward-bf16]" if bf16 else "[backward]") + label
     scale = 1.0 / eng.cfg.FEAT_STRIDE
     gen = torch.Generator(device=eng.device).manual_seed(1)
 
@@ -803,18 +841,18 @@ def check_backward_kernel(eng, groups, dtype):
         "dense": {k: cotangent(*groups[k], "dense") for k in groups},
     }
     err = 0.0
-    for pattern, gs in cases.items():
+    for case, gs in cases.items():
         for k, g in gs.items():
             f, rois = groups[k]
             got = kernel(f, rois, g, 7, 7, scale)
             want = plain(f, rois, g, 7, 7, scale)
             torch.cuda.synchronize()
             _check(torch.equal(got != 0, want != 0),
-                   f"{tag} {pattern} {k}: nonzero positions differ")
+                   f"{tag} {case} {k}: nonzero positions differ")
             e = float((got - want).abs().max())
-            _check(e == 0.0, f"{tag} {pattern} {k}: max |diff| {e}")
+            _check(e == 0.0, f"{tag} {case} {k}: max |diff| {e}")
             err = max(err, e)
-            print(f"{tag} {pattern:5s} {k:4s} g {tuple(g.shape)} {dtype}, "
+            print(f"{tag} {case:5s} {k:4s} g {tuple(g.shape)} {dtype}, "
                   f"{int(active_rows(g).sum())} active rows: identical "
                   f"nonzero positions ({int((got != 0).sum())}), max |diff|"
                   f" {e}", flush=True)
@@ -833,8 +871,8 @@ def check_backward_kernel(eng, groups, dtype):
           f"cotangent on one cell ({nonempty} cells hit, sum "
           f"{float(got.sum()):.0f})", flush=True)
 
-    # times of one step's two launches (the MIL pattern: the real one)
-    gs = cases["mil"]
+    # times of one step's two launches, in the step's own pattern
+    gs = cases[pattern]
     ms = plain_ms = bound_ms = 0.0
     per = {}
     for k, g in gs.items():
@@ -855,14 +893,17 @@ def check_backward_kernel(eng, groups, dtype):
 
     tdense = cuda_ms(dense, 5)
     split = phase_split(dense, BACKWARD_PHASES, reps=2)
+    dbound, dby = roi_pool_bwd_bound(*groups["weak"], cases["dense"]["weak"],
+                                     scale)
     print(f"{tag} weak launch with a dense cotangent (all 4000 rows): "
           f"kernel {tdense:.4f} ms ({split_text(split)} ms by the "
-          "profiler)", flush=True)
+          f"profiler), bound {dbound:.4f} ms by {dby}", flush=True)
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": "bytes" if all(
                 v["bound_by"] == "bytes" for v in per.values())
-            else "operations", "per_launch": per,
-            "dense_weak_ms": tdense, "dense_weak_split_ms": split}
+            else "operations", "per_launch": per, "pattern": pattern,
+            "dense_weak_ms": tdense, "dense_weak_split_ms": split,
+            "dense_weak_bound_ms": dbound}
 
 
 NAN_CASES = ("in_bins", "below_bins", "outside_columns", "g_some_rois",
@@ -925,13 +966,16 @@ def plant_nans(case, f, rois, g, scale, seed):
     return f, g
 
 
-def check_backward_nan_routing(eng, groups) -> dict:
+def check_backward_nan_routing(eng, groups, dtypes=None,
+                               label: str = "") -> dict:
     """Phase 8b: both backward kernels (#4 f32, #5 bf16) against their
     plain versions, which follow the Pallas kernels, under NaNs: in the map
     (inside bins, in a window below a bin, outside the ROIs' columns inside
     a window's rows) and in the cotangent (some ROIs, all of it), on the
     supervised (dense cotangent) and the weak (MIL cotangent) group.  The
-    same NaN positions and equal values elsewhere, or the run fails."""
+    same NaN positions and equal values elsewhere, or the run fails.
+    ``dtypes``: the cotangent dtypes (both by default); ``label`` names the
+    model in the output."""
     import torch
 
     from wssdl_bus_tpu_torch.ops.roi_pool import (roi_pool_grad,
@@ -942,11 +986,11 @@ def check_backward_nan_routing(eng, groups) -> dict:
     scale = 1.0 / eng.cfg.FEAT_STRIDE
     gen = torch.Generator(device=eng.device).manual_seed(4)
     out = {}
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in dtypes or (torch.float32, torch.bfloat16):
         bf16 = dtype == torch.bfloat16
         kernel = roi_pool_fc_backward_bf16 if bf16 else roi_pool_fc_backward
         plain = roi_pool_grad_bf16 if bf16 else roi_pool_grad
-        tag = "[backward-bf16]" if bf16 else "[backward]"
+        tag = ("[backward-bf16]" if bf16 else "[backward]") + label
         for k, (f, rois) in groups.items():
             shape = (rois.shape[0], rois.shape[1], 49 * f.shape[-1])
             g = torch.randn(shape, generator=gen, device=eng.device)
@@ -1115,7 +1159,7 @@ def time_train_step(eng, batch, reps: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
-def profile_train(eng, batch, out_dir: str):
+def profile_train(eng, batch, out_dir: str, tag: str = ""):
     """``--profile``: torch.profiler over two combined training steps."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -1134,14 +1178,15 @@ def profile_train(eng, batch, out_dir: str):
               and e.device_type == torch.autograd.DeviceType.CUDA]
     events.sort(key=lambda e: -e.device_time_total)
     busy = sum(e.device_time_total for e in events) / 1e6
-    print(f"[profile-train] 2 combined steps: wall {wall * 1e3:.3f} ms, "
+    print(f"[profile-train{tag}] 2 combined steps: wall {wall * 1e3:.3f} ms, "
           f"device busy {busy * 1e3:.3f} ms ({100 * busy / wall:.1f}%)",
           flush=True)
     for e in events[:20]:
-        print(f"[profile-train] {e.device_time_total / 2e3:9.4f} ms/step "
+        print(f"[profile-train{tag}] {e.device_time_total / 2e3:9.4f} ms/step "
               f"x{e.count // 2:<5d} {e.key[:110]}", flush=True)
     os.makedirs(out_dir, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(out_dir, "train_step_trace.json"))
+    prof.export_chrome_trace(os.path.join(out_dir,
+                                          f"train_step{tag}_trace.json"))
 
 
 def check_train_parity(model, cfg, canvas, batch, device="cuda"):
@@ -1214,11 +1259,12 @@ def kernel_wrappers() -> dict:
     from wssdl_bus_tpu_torch.ops.nms_cuda import nms_keep
     from wssdl_bus_tpu_torch.ops.roi_pool_cuda import (
         roi_pool_fc, roi_pool_fc_backward, roi_pool_fc_backward_bf16,
-        roi_pool_fc_bf16)
+        roi_pool_fc_bf16, roi_pool_grouped)
 
     return {f.__name__: f for f in (
-        nms_keep, roi_pool_fc, roi_pool_fc_backward, roi_pool_fc_bf16,
-        roi_pool_fc_backward_bf16, vgg_stem_fused, vgg_conv2_pool)}
+        nms_keep, roi_pool_fc, roi_pool_grouped, roi_pool_fc_backward,
+        roi_pool_fc_bf16, roi_pool_fc_backward_bf16, vgg_stem_fused,
+        vgg_conv2_pool)}
 
 
 def reset_counts():
@@ -1717,6 +1763,40 @@ CLI_ITERS = 6             # the combined run; snapshots and evaluations at 3, 6
 CLI_SNAPSHOT = "VGGnet_fast_rcnn_iter_{}"
 
 
+# flax leaf -> the reference checkpoint's variable name
+NPY_VARS = {"kernel": "weights", "bias": "biases", "gamma": "gamma",
+            "beta": "beta", "mean": "moving_mean", "var": "moving_variance"}
+
+
+def write_npy(path: str, tree: dict) -> int:
+    """A flax-layout tree (``params_to_jax``) as a reference-layout ``.npy``
+    dict ``{scope: {var: value}}``: flat VGG scopes, slash-nested ResNet
+    ones (``group0/block0/conv1``, ``group2/norm``), norm variables under
+    ``batch_normalization/``; -> the arrays written."""
+    data = {}
+
+    def walk(node, path):
+        for k, v in node.items():
+            if isinstance(v, dict):
+                walk(v, path + (k,))
+                continue
+            segs = []
+            for p in path:
+                if p in ("backbone", "conv", "dense", "bn", "gn"):
+                    continue
+                segs += [p[:-5], "norm"] if p.endswith("_norm") else [p]
+            var = NPY_VARS[k]
+            if "bn" in path:
+                var = "batch_normalization/" + var
+            data.setdefault("/".join(segs), {})[var] = v
+
+    for part in ("trunk", "head"):
+        for coll in tree[part].values():
+            walk(coll, ())
+    np.save(path, data, allow_pickle=True)
+    return sum(len(v) for v in data.values())
+
+
 def write_he_npy(path: str) -> int:
     """The seeded He weights (``models/convert.py:he_tree``, seed 0,
     ``input_scale`` 64) as a reference-layout ``.npy`` dict ``{scope:
@@ -1724,25 +1804,9 @@ def write_he_npy(path: str) -> int:
     from wssdl_bus_tpu_torch.models.convert import he_tree, params_to_jax
     from wssdl_bus_tpu_torch.models.detector import build_detector
 
-    tree = he_tree(params_to_jax(
+    return write_npy(path, he_tree(params_to_jax(
         build_detector("VGGnet_train", device="cpu").state_dict()), 0,
-        input_scale=64.0)
-    data = {}
-
-    def walk(node, path):
-        for k, v in node.items():
-            if isinstance(v, dict):
-                walk(v, path + (k,))
-            else:
-                scope = "/".join(p for p in path if p not in (
-                    "backbone", "conv", "dense"))
-                data.setdefault(scope, {})[
-                    {"kernel": "weights", "bias": "biases"}[k]] = v
-
-    for part in ("trunk", "head"):
-        walk(tree[part]["params"], ())
-    np.save(path, data, allow_pickle=True)
-    return sum(len(v) for v in data.values())
+        input_scale=64.0))
 
 
 def train_cli(fn, argv, log: str):
@@ -1888,21 +1952,20 @@ def check_device_prep(solver, smi: str) -> dict:
     return out
 
 
-def eval_pool_stats(solver) -> dict:
-    """Phase 11e: the pool forward at the eval step's shape: a batch of
-    EVAL_BATCH test images through the kernel engine's trunk, TEST
+def eval_step_pool_inputs(solver):
+    """The pool's inputs at the eval step's shape, as ``Solver.
+    periodic_eval`` gives them: a batch of BATCH test images of the
+    solver's network through its kernel engine's trunk (eval mode), TEST
     proposals, TRAIN.BATCH_SIZE ROIs sampled per image with no GT
-    appended; kernel == plain, and its times and bound."""
+    appended.  -> (feat, rois, scale)."""
     import torch
 
     from wssdl_bus_tpu_torch.data.minibatch import get_minibatch
     from wssdl_bus_tpu_torch.ops.proposal_target import proposal_target_layer
-    from wssdl_bus_tpu_torch.ops.roi_pool_cuda import (roi_pool_fc,
-                                                       roi_pool_fc_plain)
     from wssdl_bus_tpu_torch.train.engine import _batch_tensors
 
     eng, cfg = solver.eng, solver.cfg
-    blobs = get_minibatch(solver.roidb_test[:BATCH], "VGGnet_train", cfg,
+    blobs = get_minibatch(solver.roidb_test[:BATCH], solver.net_name, cfg,
                           eng.canvas_hw, False, False,
                           np.random.RandomState(0))
     b = _batch_tensors(blobs, eng.device)
@@ -1914,7 +1977,19 @@ def eval_pool_stats(solver) -> dict:
             props.boxes, props.valid, b["gt_boxes"], b["num_gt_boxes"],
             generator=eng.generator, include_gt=False,
             **eng._pt_kwargs).rois
-        scale = 1.0 / cfg.FEAT_STRIDE
+    return feat, rois, 1.0 / cfg.FEAT_STRIDE
+
+
+def eval_pool_stats(solver) -> dict:
+    """Phase 11e: #2 at the eval step's shape (:func:`eval_step_pool_inputs`
+    of a VGG16 solver): kernel == plain, and its times and bound."""
+    import torch
+
+    from wssdl_bus_tpu_torch.ops.roi_pool_cuda import (roi_pool_fc,
+                                                       roi_pool_fc_plain)
+
+    feat, rois, scale = eval_step_pool_inputs(solver)
+    with torch.no_grad():
         got = roi_pool_fc(feat, rois, 7, 7, scale)
         want = roi_pool_fc_plain(feat, rois, 7, 7, scale)
         _check(torch.equal(got, want), "ROI pool at the eval step's shape: "
@@ -2159,6 +2234,485 @@ def run_training_entry_points(tmpdir: str, data: str, out_dir: str,
             "losses": losses.tolist(),
             "test_losses": [e["test_loss"] for e in sol_a.stats["eval"]]}
 
+# --------------------------------------------------------------------- #
+# phase 13: the ResNet detectors
+# --------------------------------------------------------------------- #
+RESNET_NET = {"test": "Resnet_test", "train": "Resnet_train"}
+RESNET_CLI_ITERS = 3      # snapshots at 2 and 3, one evaluation at 3
+
+
+def resnet_model(name: str, depth: int, norm, seed: int = 0):
+    """A ResNet detector on the card with seeded He weights (``input_scale``
+    1: the ResNet blob is already unit scale) and the RPN's 1x1 kernels x
+    0.03, so that the decoded proposals stay near their anchors and the
+    ranked RPN probabilities are not f32 ties at 1.0 (He weights through
+    the residual stack leave the RPN features at std ~10)."""
+    from wssdl_bus_tpu_torch.models.convert import (he_tree, params_from_jax,
+                                                    params_to_jax)
+    from wssdl_bus_tpu_torch.models.detector import build_detector
+
+    model = build_detector(name, device="cuda", depth=depth, norm=norm)
+    tree = he_tree(params_to_jax(model.state_dict()), seed)
+    for k in ("rpn_cls_score", "rpn_bbox_pred"):
+        tree["trunk"]["params"][k]["conv"]["kernel"] *= 0.03
+    model.load_state_dict(params_from_jax(tree))
+    return model
+
+
+def grouped_forward_stats(feat, rois, scale, tag: str) -> dict:
+    """Kernel #3 through its wrapper ``roi_pool_grouped`` against
+    ``roi_pool_grouped_plain`` on (feat, rois): equal values in both
+    flavors and with 64 NaNs planted in the map (the same NaN positions);
+    the path ``forward_plan`` picks and its grid; CUDA-event times of the
+    kernel and the plain version, device time by the profiler, the bound
+    (bytes: feat and rois read once, the [B, P, 7, 7, C] output written
+    once)."""
+    import torch
+
+    from wssdl_bus_tpu_torch.ops.roi_pool_cuda import (
+        forward_plan, roi_pool_grouped, roi_pool_grouped_plain)
+
+    b, h, w, c = feat.shape
+    p = rois.shape[1]
+    with torch.no_grad():
+        for flavor in ("gpu", "cpu"):
+            got = roi_pool_grouped(feat, rois, 7, 7, scale, flavor)
+            want = roi_pool_grouped_plain(feat, rois, 7, 7, scale, flavor)
+            _check(got.shape == (b, p, 7, 7, c) and torch.equal(got, want),
+                   f"#3 {tag} ({flavor}): kernel != plain")
+        f = feat.clone()
+        gen = torch.Generator(device=f.device).manual_seed(3)
+        at = tuple(torch.randint(0, n, (64,), generator=gen,
+                                 device=f.device) for n in f.shape)
+        f[at] = float("nan")
+        got = roi_pool_grouped(f, rois, 7, 7, scale)
+        want = roi_pool_grouped_plain(f, rois, 7, 7, scale)
+        nan = want.isnan()
+        _check(bool(nan.any()) and torch.equal(got.isnan(), nan)
+               and torch.equal(got[~nan], want[~nan]),
+               f"#3 {tag}: NaN case kernel != plain")
+
+        def run():
+            return roi_pool_grouped(feat, rois, 7, 7, scale)
+
+        ms = cuda_ms(run, 20)
+        device_ms, recorded = launch_device_ms(
+            run, ("roi_pool_fwd_smem", "roi_pool_fwd_direct"))
+        plain_ms = cuda_ms(lambda: roi_pool_grouped_plain(
+            feat, rois, 7, 7, scale), 2, warmup=1)
+    bound_ms, by = roi_pool_bound(feat, rois, scale)
+    cs, rblk = forward_plan(b, h, w, c, p)
+    grid = [-(-c // cs), -(-p // rblk), b] if cs else None
+    out_mb = b * p * 49 * c * 4 / 1e6
+    print(f"[resnet-pool] #3 {tag} feat {tuple(feat.shape)} rois "
+          f"{tuple(rois.shape)}: roi_pool_grouped == plain (both flavors, "
+          f"and {int(nan.sum())} NaN outputs at the same positions with 64 "
+          f"NaNs in the map); forward_plan "
+          f"{'shared-memory' if cs else 'direct'}"
+          f" path, {cs}-channel slices x {rblk} ROIs a block, grid {grid} "
+          f"({grid[0] * grid[2] if grid else '-'} slice blocks of the image "
+          f"axis); kernel {ms:.4f} ms, device "
+          f"{'not recorded' if device_ms is None else f'{device_ms:.4f}'} ms "
+          f"({recorded} launches recorded), plain {plain_ms:.3f} ms, bound "
+          f"{bound_ms:.4f} ms by {by} (output {out_mb:.1f} MB), "
+          f"{bound_ms / ms:.3f} of it", flush=True)
+    return {"max_abs_err": 0.0, "ms": ms, "device_ms": device_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
+            "bound_fraction": bound_ms / ms, "plan": [cs, rblk],
+            "grid": grid, "output_mb": out_mb,
+            "shape": [list(feat.shape), list(rois.shape)]}
+
+
+def served_features(eng, requests, net):
+    """The served batch's map and TEST proposals, from the engine's own
+    trunk: (feat [B, h, w, C], rois [B, 300, 4])."""
+    import torch
+
+    from wssdl_bus_tpu_torch.models.detector import rpn_softmax
+    from wssdl_bus_tpu_torch.ops.proposal import proposal_layer
+
+    cfg = eng.cfg
+    data, info = (torch.as_tensor(a, device=eng.device)
+                  for a in _packed(eng, requests, net))
+    with torch.no_grad():
+        eng.model.eval()
+        feat, score, bbox = eng.model.apply_trunk(data)
+        props = proposal_layer(rpn_softmax(score, eng.num_anchors), bbox,
+                               info, eng.anchors, eng.num_anchors,
+                               cfg.TEST.RPN_PRE_NMS_TOP_N,
+                               cfg.TEST.RPN_POST_NMS_TOP_N,
+                               cfg.TEST.RPN_NMS_THRESH,
+                               float(cfg.TEST.RPN_MIN_SIZE))
+    return feat, props.boxes.contiguous()
+
+
+def resnet_serve(tag, eng, requests, smi, batches=(1, BATCH)):
+    """The served path at full width through ``im_detect_batch`` +
+    ``report_detections``: BATCH_1_REQUESTS requests at batch 1 and one
+    batch of 8, the counters around the run (one NMS and one #3 launch per
+    device step, every #3 launch on the shared-memory path, nothing else);
+    then ms/image by stage and peak memory at PyTorch's defaults."""
+    import torch
+
+    net = RESNET_NET["test"]
+    reset_counts()
+    out = []
+    steps = 0
+    for b in batches:
+        reqs = requests[:BATCH_1_REQUESTS] if b == 1 else requests[:b]
+        out += serve(eng, reqs, net, b)
+        steps += -(-len(reqs) // b)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    check_counts(counts, {"nms_keep": steps, "roi_pool_grouped": steps},
+                 f"{tag} serving")
+    paths = check_pool_paths(counts, f"serve_{tag}")
+    for scores, boxes, _ in out:
+        _check(scores.ndim == 2 and scores.shape[1] == 3
+               and boxes.shape == (scores.shape[0], 12)
+               and np.isfinite(scores).all() and np.isfinite(boxes).all(),
+               f"{tag} serving: outputs {scores.shape} {boxes.shape}")
+    perf = {}
+    with pytorch_defaults():
+        for b in batches:
+            perf[b] = t = time_serving(eng, requests, net, b)
+            print(f"[resnet-perf] {tag} batch {b}: {t['ms_per_image']:.3f} "
+                  f"ms/image end to end = host prep "
+                  f"{t['prep_ms_per_image']:.3f} + device step "
+                  f"{t['device_step_ms_per_image']:.3f} + decode/report "
+                  f"{t['decode_report_ms_per_image']:.3f}; peak "
+                  f"{t['peak_bytes'] / 2**20:.1f} MiB allocated; {smi}",
+                  flush=True)
+    print(f"[resnet-serve] {tag}: {len(out)} requests served; launches "
+          f"{counts} (one NMS + one roi_pool_grouped per device step, "
+          f"{steps} steps); #3 by path {paths['roi_pool_grouped']}; valid "
+          f"proposals {[len(s) for s, _, _ in out]}", flush=True)
+    return {"launches": counts, "perf": perf,
+            "proposals": [len(s) for s, _, _ in out]}
+
+
+def resnet_train(tag, teng, joint, weak, smi, mil: bool = True):
+    """Combined steps on ``joint`` (and, with ``mil``, one MIL step on
+    ``weak``) at full width and the default TRAIN budgets, the counters
+    around them; finite losses, every parameter moved, the running
+    statistics moved by the combined steps and left bit for bit by the MIL
+    step; then ms/step by CUDA events and peak memory at PyTorch's
+    defaults."""
+    import torch
+
+    before = {k: v.clone() for k, v in teng.model.state_dict().items()}
+    stats_keys = [k for k in before if k.endswith((".mean", ".var"))]
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    losses = []
+    for k, batch in enumerate(joint):
+        ls = teng.train_step(batch, step=TRAIN_STEP + k)
+        losses.append([float(x) for x in ls])
+        _check(np.isfinite(losses[-1]).all(), f"{tag} step {k}: losses "
+               f"{losses[-1]}")
+    after_combined = {k: v.clone() for k, v in teng.model.state_dict().items()
+                      if k in stats_keys}
+    mil_loss = None
+    if mil:
+        mil_loss = float(teng.train_step_mil(weak, step=TRAIN_STEP))
+        _check(np.isfinite(mil_loss), f"{tag} MIL step loss {mil_loss}")
+    torch.cuda.synchronize()
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    n = len(joint) + int(mil)
+    want = {"nms_keep": n, "roi_pool_grouped": 2 * len(joint) + int(mil),
+            "roi_pool_fc_backward": 2 * len(joint) + int(mil)}
+    check_counts(counts, want, f"{tag} training")
+    paths = check_pool_paths(counts, f"train_{tag}")
+    after = teng.model.state_dict()
+    unmoved = [k for k in after if k not in stats_keys
+               and torch.equal(before[k], after[k])]
+    _check(not unmoved, f"{tag}: parameters that did not move: {unmoved[:5]}")
+    still = [k for k in stats_keys if torch.equal(before[k],
+                                                  after_combined[k])]
+    _check(not still, f"{tag}: running statistics the combined steps did "
+           f"not move: {still[:5]}")
+    if mil:
+        changed = [k for k in stats_keys
+                   if not torch.equal(after_combined[k], after[k])]
+        _check(not changed, f"{tag}: the MIL step changed running "
+               f"statistics {changed[:5]}")
+    with pytorch_defaults():
+        step_ms = time_train_step(teng, joint[-1])
+    print(f"[resnet-train] {tag}: {len(joint)} combined steps"
+          f"{' + 1 MIL step' if mil else ''}; launches {counts} (expected "
+          f"{want}); #3 by path {paths['roi_pool_grouped']}; losses finite "
+          f"(last {np.round(losses[-1], 4).tolist()}, MIL {mil_loss}); all "
+          f"{len(after) - len(stats_keys)} parameters moved; "
+          f"{len(stats_keys)} running statistics moved by the combined "
+          f"steps{' and bit for bit unchanged by the MIL step' if mil else ''}"
+          f"; combined step {step_ms:.3f} ms by CUDA events (3 more steps, "
+          f"PyTorch's defaults); peak {peak / 2**20:.1f} MiB allocated "
+          f"(16 GiB limit: {'within' if peak <= 16 * 2**30 else 'EXCEEDED'}"
+          f"); {smi}", flush=True)
+    return {"launches": counts, "losses": losses, "mil_loss": mil_loss,
+            "step_ms_cuda_events": step_ms, "peak_bytes": peak,
+            "running_stats": len(stats_keys)}
+
+
+def resnet_kernels(tag, eng, teng, requests, batch) -> dict:
+    """#3 and #4 against their plain versions at this model's served and
+    training shapes: #3 at the served batch of 8 and at the combined step's
+    two groups; #4 at the two groups with MIL-sparse, dense and tie
+    cotangents (times and bounds), then under NaNs in the map and in the
+    cotangent (f32, the ResNet path's dtype)."""
+    import torch
+
+    scale = 1.0 / eng.cfg.FEAT_STRIDE
+    feat, rois = served_features(eng, requests, RESNET_NET["test"])
+    fwd = {"serve": grouped_forward_stats(feat, rois, scale,
+                                          f"{tag} serve")}
+    del feat, rois
+    groups = training_groups(teng, batch)
+    for k, (f, r) in groups.items():
+        fwd[f"train_{k}"] = grouped_forward_stats(f, r, scale,
+                                                  f"{tag} train {k}")
+    label = f" {tag}"
+    # BatchRenorm's statistics over every ROI of the step make the weak
+    # group's cotangent dense; GroupNorm (per ROI) leaves MIL's one row a
+    # bag
+    pattern = "dense" if teng.model.norm == "BN" else "mil"
+    bwd = check_backward_kernel(teng, groups, torch.float32, label, pattern)
+    bwd["nan_routing"] = check_backward_nan_routing(
+        teng, groups, (torch.float32,), label)
+    del groups
+    return {"forward": fwd, "backward": bwd}
+
+
+def resnet_cli(tmpdir, data, out_dir, smi) -> dict:
+    """``main.train`` with ``--network Resnet_train`` (ResNet-18 BN, from
+    its seeded He weights as a reference-layout ``.npy``, every array
+    loaded) for RESNET_CLI_ITERS iterations, an evaluation (batch 8) and a
+    snapshot at the end, one at 2; ``--resume`` from 2: parameters, running
+    statistics, moments and test losses of the final snapshot equal bit
+    for bit (TF32 off, deterministic algorithms); ``main.test`` with
+    ``Resnet_test`` on that snapshot at batch 8."""
+    import torch
+
+    from wssdl_bus_tpu_torch.main import test as main_test
+    from wssdl_bus_tpu_torch.main import train as main_train
+    from wssdl_bus_tpu_torch.models.convert import params_to_jax
+    from wssdl_bus_tpu_torch.train.checkpoint import load_checkpoint
+
+    os.makedirs(out_dir, exist_ok=True)
+    npy = os.path.join(tmpdir, "resnet18_bn_he.npy")
+    ref = resnet_model("Resnet_train", 18, "BN").state_dict()
+    n_arrays = write_npy(npy, params_to_jax(ref))
+    res = ["--network", "Resnet_train", "--net_depth", "18",
+           "--norm_type", "BN"]
+
+    def argv(out, *extra):
+        return ["--data_dir", data, "--output_dir", out, "--max_iters",
+                str(RESNET_CLI_ITERS), "--pretrained_model", npy,
+                "--eval_batch", str(BATCH), *res, "--no_prefetch", *extra,
+                "--set_cfgs", "TRAIN.DISPLAY", "1", "TRAIN.SNAPSHOT_ITERS",
+                "2", "TRAIN.TEST_ITERS", str(RESNET_CLI_ITERS)]
+
+    def log(t):
+        return os.path.join(out_dir, f"resnet_{t}.log")
+
+    out_a = os.path.join(tmpdir, "resnet_a")
+    with deterministic_ops() as nondet:
+        sol_a, counts_a = train_cli(main_train.main, argv(out_a), log("train"))
+    with open(log("train")) as f:
+        _check(f"loaded {n_arrays} pretrained arrays" in f.read(),
+               f"main.train (ResNet) did not load the {n_arrays} arrays")
+    n_it = RESNET_CLI_ITERS
+    want_a = {"nms_keep": n_it + 2, "roi_pool_grouped": 2 * n_it + 2,
+              "roi_pool_fc_backward": 2 * n_it}
+    check_counts(counts_a, want_a, "main.train (ResNet)")
+    check_pool_paths(counts_a, "resnet_train_cli")
+    # #3 at the shape of the evaluation's launches, against its plain version
+    eval_pool = grouped_forward_stats(*eval_step_pool_inputs(sol_a),
+                                      "resnet18_bn eval")
+    snap = CLI_SNAPSHOT.format(n_it)
+    v0, _ = load_checkpoint(os.path.join(out_a, CLI_SNAPSHOT.format(2)))
+    unmoved = [k for k in ref if k.endswith((".mean", ".var"))
+               and torch.equal(v0[k], ref[k].cpu())]
+    _check(not unmoved, f"main.train (ResNet): running statistics unmoved "
+           f"at iteration 2: {unmoved[:3]}")
+    out_b = os.path.join(tmpdir, "resnet_b")
+    os.makedirs(out_b)
+    shutil.copytree(os.path.join(out_a, CLI_SNAPSHOT.format(2)),
+                    os.path.join(out_b, CLI_SNAPSHOT.format(2)))
+    with deterministic_ops() as nondet_b:
+        sol_b, counts_b = train_cli(main_train.main,
+                                    argv(out_b, "--resume"), log("resume"))
+    _check(sol_b.start_iter == 2, f"resume started at {sol_b.start_iter}")
+    check_counts(counts_b, {"nms_keep": 3, "roi_pool_grouped": 4,
+                            "roi_pool_fc_backward": 2},
+                 "main.train --resume (ResNet)")
+    resume = same_snapshot(os.path.join(out_a, snap),
+                           os.path.join(out_b, snap))
+    resume["nondeterministic_ops"] = sorted(set(nondet) | set(nondet_b))
+    va, _ = load_checkpoint(os.path.join(out_a, snap))
+    vb, _ = load_checkpoint(os.path.join(out_b, snap))
+    n_stats = sum(k.endswith((".mean", ".var")) for k in va)
+    _check(resume["equal"] and n_stats == 60
+           and all(torch.equal(va[k], vb[k]) for k in va),
+           f"ResNet --resume is not exact: {resume}")
+    print(f"[resnet-cli] main.train --network Resnet_train (18, BN): "
+          f"{n_it} iterations from the He .npy ({n_arrays} arrays loaded), "
+          f"launches {counts_a}; --resume from 2: launches {counts_b}; the "
+          f"iteration-{n_it} snapshots' parameters, {n_stats} running "
+          f"statistics, moments and test losses {resume['test_losses']} "
+          f"equal bit for bit; ops without a deterministic implementation: "
+          f"{resume['nondeterministic_ops'] or 'none'}; {smi}", flush=True)
+    shutil.rmtree(out_b)
+
+    out_t = os.path.join(tmpdir, "resnet_test")
+    timings = {}
+    reset_counts()
+    with open(log("test"), "w") as f, contextlib.redirect_stdout(f):
+        all_boxes, result = main_test.main(
+            ["--model", os.path.join(out_a, snap), "--imdb_test", "bus_test",
+             "--data_dir", data, "--network", "Resnet_test", "--net_depth",
+             "18", "--norm_type", "BN", "--output_dir", out_t,
+             "--batch_size", str(BATCH)], timings=timings)
+    torch.cuda.synchronize()
+    counts_t = read_counts()
+    steps = -(-EVAL_IMAGES // BATCH)
+    check_counts(counts_t, {"nms_keep": steps, "roi_pool_grouped": steps},
+                 "main.test (ResNet)")
+    check_pool_paths(counts_t, "resnet_test_cli")
+    _check({"detections.pkl", "eval.txt"} <= set(os.listdir(out_t)),
+           "main.test (ResNet) wrote no detections / eval.txt")
+    n_dets = sum(len(all_boxes[j][i]) for j in (1, 2)
+                 for i in range(EVAL_IMAGES))
+    ms = timings["wall_s"] * 1e3 / EVAL_IMAGES
+    dev = timings["device_ms"]
+    print(f"[resnet-cli] main.test --network Resnet_test on the "
+          f"iteration-{n_it} snapshot, batch {BATCH}: launches {counts_t}; "
+          f"{n_dets} detections; CorLoc {[float(x) for x in result]}; "
+          f"{ms:.3f} ms/image (device step "
+          f"{'not measured' if dev is None else dev / EVAL_IMAGES}); {smi}",
+          flush=True)
+    shutil.rmtree(out_a)
+    return {"launches": {"resnet_train_cli": counts_a,
+                         "resnet_train_cli_resume": counts_b,
+                         "resnet_test_cli": counts_t},
+            "eval_pool": eval_pool, "resume": resume,
+            "train_rates": cli_rates(sol_a),
+            "test_ms_per_image": ms, "detections": n_dets}
+
+
+def resnet_setup(tmp, requests) -> dict:
+    """The ResNet phases' config, canvases and training batches (speckle
+    images written to ``tmp``, the ResNet pixel scale)."""
+    from wssdl_bus_tpu_torch.config import Config
+    from wssdl_bus_tpu_torch.data.augment import max_canvas
+
+    cfg = Config()
+    t = cfg.TRAIN
+    canvas = max_canvas([r.shape for r in requests], cfg.TEST.SCALES[0],
+                        cfg.TEST.MAX_SIZE)
+    sup, ws, sizes = write_roidb(tmp, seed=11,
+                                 n_sup=TRAIN_STEPS * t.IMS_PER_BATCH,
+                                 n_ws=TRAIN_STEPS * t.WS_IMS_PER_BATCH)
+    crop = t.CROPPING_MAX_MARGIN if t.USE_CROPPING else 0.0
+    tcanvas = max_canvas(sizes, t.SCALES[0], t.MAX_SIZE, crop_margin=crop)
+    joint, weak = train_batches(cfg, tcanvas, sup, ws, TRAIN_STEPS,
+                                RESNET_NET["train"])
+    return {"cfg": cfg, "canvas": canvas, "tcanvas": tcanvas,
+            "joint": joint, "weak": weak}
+
+
+RESNET_CELLS = (("resnet18_bn", 18, "BN"), ("resnet50_gn", 50, "GN"))
+
+
+def resnet_engines(st, depth, norm):
+    """(serving engine, training engine) of one ResNet at full width."""
+    from wssdl_bus_tpu_torch.train.engine import Engine
+
+    return (Engine(resnet_model(RESNET_NET["test"], depth, norm), st["cfg"],
+                   st["canvas"]),
+            Engine(resnet_model(RESNET_NET["train"], depth, norm),
+                   st["cfg"], st["tcanvas"]))
+
+
+def run_resnet_kernels(st, requests) -> dict:
+    """Phase 13a (before the evaluation phase, whose profiler trace leaves
+    torch.profiler recording none of the pool forward's later launches):
+    #3 and #4 at the ResNet-18 (C = 256) and ResNet-50 (C = 1024) served
+    and training shapes, from each model's own seeded trunk."""
+    import torch
+
+    out = {}
+    for tag, depth, norm in RESNET_CELLS:
+        eng, teng = resnet_engines(st, depth, norm)
+        out[tag] = resnet_kernels(tag, eng, teng, requests, st["joint"][0])
+        del eng, teng
+        torch.cuda.empty_cache()
+    return out
+
+
+def run_resnet(st, kern, eval_data, requests, out_dir, smi,
+               profile: bool = False) -> dict:
+    """Phase 13 (see the module docstring), with phase 13a's kernel checks
+    ``kern``; with ``profile`` the torch.profiler breakdowns of ResNet-18
+    BN's batch-8 serving step and combined training step (PyTorch's
+    defaults)."""
+    import torch
+
+    from wssdl_bus_tpu_torch.train.engine import Engine
+
+    t0 = time.perf_counter()
+    cfg, canvas, tcanvas = st["cfg"], st["canvas"], st["tcanvas"]
+    joint, weak = st["joint"], st["weak"]
+    out = {"launches": {}}
+
+    # 13b: ResNet-18 BN, the CLI default, on every path
+    tag = "resnet18_bn"
+    eng, teng = resnet_engines(st, 18, "BN")
+    print(f"[resnet] ResNet-18 BN full width (seeded He weights), serving "
+          f"canvas {canvas}, training canvas {tcanvas}, default TEST / "
+          f"TRAIN budgets", flush=True)
+    serve18 = resnet_serve(tag, eng, requests, smi)
+    train18 = resnet_train(tag, teng, joint, weak, smi)
+    if profile:
+        with pytorch_defaults():
+            profile_step(eng, requests, RESNET_NET["test"], out_dir,
+                         "_" + tag)
+            profile_train(teng, joint[-1], out_dir, "_" + tag)
+    out["launches"].update({f"serve_{tag}": serve18["launches"],
+                            f"train_{tag}": train18["launches"]})
+
+    # 13c: parity with the plain versions, TF32 off (as since phase 6)
+    eng_plain = Engine(eng.model, cfg, canvas, plain_ops=True)
+    check_serve_parity(eng, eng_plain, requests, RESNET_NET["test"],
+                       "ResNet-18 BN served batch")
+    parity = check_train_parity(teng.model, cfg, tcanvas, joint[0])
+    del eng, eng_plain, teng
+    torch.cuda.empty_cache()
+
+    # 13d: ResNet-50 GN: the bottleneck blocks, GroupNorm, C = 1024
+    tag50 = "resnet50_gn"
+    eng, teng = resnet_engines(st, 50, "GN")
+    serve50 = resnet_serve(tag50, eng, requests, smi, batches=(BATCH,))
+    train50 = resnet_train(tag50, teng, joint[:1], weak, smi, mil=False)
+    out["launches"].update({f"serve_{tag50}": serve50["launches"],
+                            f"train_{tag50}": train50["launches"]})
+    del eng, teng
+    torch.cuda.empty_cache()
+
+    # 13e: the entry points
+    cli = resnet_cli(st["tmp"], eval_data, out_dir, smi)
+    out["launches"].update(cli.pop("launches"))
+    kern["resnet18_bn"]["forward"]["eval_step"] = cli.pop("eval_pool")
+    print(f"[resnet] phase 13: {time.perf_counter() - t0:.1f} s", flush=True)
+    out.update(kernels=kern, parity=parity, cli=cli,
+               serve={tag: serve18["perf"], tag50: serve50["perf"]},
+               train={tag: {k: v for k, v in train18.items()
+                            if k != "launches"},
+                      tag50: {k: v for k, v in train50.items()
+                              if k != "launches"}})
+    return out
+
 
 def main() -> int:
     import torch
@@ -2359,6 +2913,11 @@ def main() -> int:
     bf16_launches = run_bf16_pool_path(teng, groups)
     del groups
 
+    # phase 13a: the ResNet widths of #3 and #4 against their plain versions
+    phase("13a (ResNet kernels)")
+    rst = dict(resnet_setup(tmp.name, requests), tmp=tmp.name)
+    resnet_kern = run_resnet_kernels(rst, requests)
+
     # phase 9: the opt-in stem paths, serving and training
     phase("9 (stem paths)")
     stem_runs = {name: run_stem_path(name, eng, requests, net, teng, joint,
@@ -2405,6 +2964,11 @@ def main() -> int:
                                              out_dir, smi)
     stats["roi_pool_fc"]["per_shape"]["eval_step"] = training_cli.pop(
         "eval_pool")
+
+    # phase 13: the ResNet detectors (TF32 off but where timed)
+    phase("13 (ResNet)")
+    resnet = run_resnet(rst, resnet_kern, evaluation["data"], requests,
+                        out_dir, smi, profile)
     tmp.cleanup()
 
     paths = {"serve": serve_launches, "train": train_launches,
@@ -2415,6 +2979,7 @@ def main() -> int:
         paths[f"serve_{STEM_PATHS[name]}"] = run["serve_launches"]
         paths[f"train_{STEM_PATHS[name]}"] = run["train_launches"]
     paths.update(training_cli.pop("launches"))
+    paths.update(resnet.pop("launches"))
 
     def launches(name):
         by_path = {p: c[name] for p, c in paths.items()}
@@ -2435,6 +3000,8 @@ def main() -> int:
                     max_abs_err_train=tr["max_abs_err"],
                     per_shape={"serve": sv, "train": tr})
 
+    r_fwd = {m: k["forward"] for m, k in resnet["kernels"].items()}
+    r_bwd = {m: k["backward"] for m, k in resnet["kernels"].items()}
     kernels = [
         dict(name="nms_keep", route="cuda",
              source="wssdl_bus_tpu_torch/csrc/nms.cu",
@@ -2448,11 +3015,26 @@ def main() -> int:
              launches_by_forward_path={
                  p: c["roi_pool_fc"] for p, c in POOL_PATHS.items()},
              per_shape=stats["roi_pool_fc"]["per_shape"]),
+        dict(name="roi_pool_grouped", route="cuda",
+             source="wssdl_bus_tpu_torch/csrc/roi_pool.cu",
+             replaces="wssdl_bus_tpu/ops/roi_pool_pallas.py:84",
+             library_ms=None, **launches("roi_pool_grouped"),
+             **kernel_stats(r_fwd["resnet18_bn"]["serve"]),
+             launches_by_forward_path={
+                 p: c["roi_pool_grouped"] for p, c in POOL_PATHS.items()},
+             per_shape=r_fwd),
         dict(name="roi_pool_fc_backward", route="cuda",
              source="wssdl_bus_tpu_torch/csrc/roi_pool.cu",
              replaces="wssdl_bus_tpu/ops/roi_pool_pallas.py:140",
              library_ms=None, **launches("roi_pool_fc_backward"),
-             **kernel_stats(stats["roi_pool_fc_backward"])),
+             **kernel_stats(stats["roi_pool_fc_backward"]),
+             per_shape={"vgg16_train": kernel_stats(
+                 stats["roi_pool_fc_backward"]), **{
+                     m: dict(kernel_stats(v), per_launch=v["per_launch"],
+                             pattern=v["pattern"],
+                             dense_weak_ms=v["dense_weak_ms"],
+                             dense_weak_bound_ms=v["dense_weak_bound_ms"])
+                     for m, v in r_bwd.items()}}),
         dict(name="roi_pool_fc_bf16", route="cuda",
              source="wssdl_bus_tpu_torch/csrc/roi_pool.cu",
              replaces="wssdl_bus_tpu/ops/roi_pool_pallas.py:373",
@@ -2493,6 +3075,8 @@ def main() -> int:
                                          if m != "launches"}
                                      for k, r in evaluation["runs"].items()},
                       "training_entry_points": training_cli,
+                      "resnet": {k: resnet[k] for k in (
+                          "serve", "train", "parity", "cli")},
                       "stem_paths": {STEM_PATHS[n]: {
                           k: v for k, v in r.items() if k in (
                               "serving", "training")}

@@ -1,5 +1,6 @@
 """The port stands alone: importing it, serving a request and taking
-training steps load nothing of JAX or of the JAX package; no file of it (or
+training steps (VGG16 and ResNet-18) load nothing of JAX or of the JAX
+package; no file of it (or
 ``chip_smoke.py``) imports them; and its entry points never drop to the CPU
 unasked."""
 
@@ -244,6 +245,38 @@ def test_training_cli_loads_no_jax_module():
     assert [m for m in res["modules"] if _forbidden(m)] == []
 
 
+def _resnet(script: str) -> str:
+    """A VGG16 script above, on ResNet-18 BN with its pixel scale."""
+    return script.replace(
+        'build_detector("VGGnet_test", device="cpu"), 0, 64.0)',
+        'build_detector("Resnet_test", device="cpu", depth=18, norm="BN"), '
+        '0)').replace(
+        'build_detector("VGGnet_train", device="cpu"), 0, 64.0)',
+        'build_detector("Resnet_train", device="cpu", depth=18, norm="BN"), '
+        '0)').replace('"VGGnet_test"', '"Resnet_test"').replace(
+        '"VGGnet_train"', '"Resnet_train"')
+
+
+@pytest.mark.parametrize("script", ["serve", "train"])
+def test_resnet_steps_load_no_jax_module(script):
+    """A ResNet-18 BN serving step (``im_detect_batch`` +
+    ``report_detections``) and a combined + MIL training step on the CPU,
+    in fresh processes, with the models/resnet.py modules loaded."""
+    code = _resnet(_SERVE_ON_CPU if script == "serve" else _TRAIN_ON_CPU)
+    assert "Resnet_" in code and "VGGnet" not in code
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300,
+                         check=True)
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    if script == "serve":
+        assert res["n"] > 0
+    else:
+        assert np.isfinite(res["losses"]).all()
+    assert "wssdl_bus_tpu_torch.models.resnet" in res["modules"]
+    assert [m for m in res["modules"] if _forbidden(m)] == []
+
+
 def _imports(path):
     with open(path) as f:
         tree = ast.parse(f.read(), path)
@@ -278,5 +311,8 @@ def test_entry_points_raise_without_a_card(monkeypatch):
         Engine(FasterRCNN(), Config(), (64, 64))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         build_detector("VGGnet_test")
-    with pytest.raises(NotImplementedError, match="ResNet"):
-        build_detector("Resnet_test", device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_detector("Resnet_test", depth=18, norm="BN")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Engine(FasterRCNN(backbone="Resnet", depth=18, norm="BN"), Config(),
+               (64, 64))

@@ -24,7 +24,8 @@ from wssdl_bus_tpu_torch.ops.roi_pool_cuda import (forward_plan, roi_pool_fc,
                                                    roi_pool_fc_backward_bf16,
                                                    roi_pool_fc_bf16,
                                                    roi_pool_fc_plain,
-                                                   roi_pool_grouped)
+                                                   roi_pool_grouped,
+                                                   roi_pool_grouped_plain)
 
 pytestmark = pytest.mark.gpu
 
@@ -295,6 +296,43 @@ def test_roi_pool_backward_kernel_awkward_cases(cuda, case, bf16, flavor):
     torch.cuda.synchronize()
     assert torch.equal(got, want)
     assert (got != 0).any()
+
+
+@pytest.mark.parametrize("b,p,h,w,c,pattern", [
+    (8, 300, 38, 51, 256, None),     # ResNet-18/34 served
+    (1, 128, 38, 56, 256, "dense"),  # ... training: the supervised group
+    (2, 2000, 38, 56, 256, "mil"),   # ... and the weak group
+    (8, 300, 38, 51, 1024, None),    # ResNet-50/101 served
+    (1, 128, 38, 56, 1024, "dense"),  # four 256-channel backward blocks
+    (2, 2000, 38, 56, 1024, "mil"),
+])
+def test_roi_pool_grouped_matches_plain(cuda, b, p, h, w, c, pattern):
+    """The ResNet head's pool (#3 and its backward #4) at the ResNet widths
+    under autograd: the forward counts on ``roi_pool_grouped`` (not on
+    ``roi_pool_fc``), values equal the plain version's; the backward
+    launches once and dfeat equals the plain autograd's bit for bit, on a
+    post-ReLU map full of zero ties.  ``pattern`` None: forward only (the
+    served path)."""
+    rng = np.random.RandomState(p + c)
+    feat = np.maximum(rng.randn(b, h, w, c), 0).astype(np.float32)
+    rois = torch.from_numpy(_rois(rng, b, p, h, w)).to(cuda)
+    fk = torch.from_numpy(feat).to(cuda).requires_grad_(pattern is not None)
+    fp = torch.from_numpy(feat).to(cuda).requires_grad_(pattern is not None)
+    fc = roi_pool_fc.launches
+    bwd = roi_pool_fc_backward.launches
+    got = _launch_counted(roi_pool_grouped, _path(b, p, h, w, c),
+                          lambda: roi_pool_grouped(fk, rois))
+    want = roi_pool_grouped_plain(fp, rois)
+    assert got.shape == (b, p, 7, 7, c) and torch.equal(got, want)
+    assert roi_pool_fc.launches == fc
+    if pattern is None:
+        return
+    g = torch.from_numpy(_cotangent(rng, b, p, 49 * c, pattern)).to(cuda)
+    got.backward(g.view_as(got))
+    want.backward(g.view_as(want))
+    torch.cuda.synchronize()
+    assert roi_pool_fc_backward.launches == bwd + 1
+    assert torch.equal(fk.grad, fp.grad) and (fk.grad != 0).any()
 
 
 def test_roi_pool_fc_autograd_on_the_card(cuda):
@@ -599,7 +637,10 @@ def _nan_case(case, rng, b, p, h, w, c):
 @pytest.mark.parametrize("case", ["in_bins", "below_bins", "outside_columns",
                                   "infinities", "g_some_rois", "g_all"])
 @pytest.mark.parametrize("shape", [(2, 9, 12, 15, 8), (1, 128, 38, 56, 512),
-                                   (2, 2000, 38, 56, 512)])
+                                   (2, 2000, 38, 56, 512),
+                                   # the ResNet widths: 1 and 4 blocks
+                                   (1, 128, 38, 56, 256),
+                                   (1, 128, 38, 56, 1024)])
 @pytest.mark.parametrize("bf16", [False, True])
 def test_roi_pool_backward_kernel_nan_routing(cuda, case, shape, bf16):
     """Both backward kernels route NaNs and infinities as their plain

@@ -1,0 +1,355 @@
+"""The ResNet slice end to end: the port's ``Engine`` over ResNet-18 BN
+(``inference_step``, the combined ``train_step``, ``train_step_mil``,
+``eval_step``) and one ResNet-18 GN combined step, against the JAX
+package's ``Engine._inference_impl``, ``_train_step_impl`` (built with
+``remat=False``), ``_train_step_mil_impl`` and ``_eval_impl`` from the same
+seeded He weights and Adam state, at a 192x256 canvas, 1 supervised + 2
+weak images and reduced budgets (RPN 32 -> 16 proposals, 16 ROIs per
+supervised image).  The anchor and ROI sampling uniforms are the JAX
+package's, reproduced from its key splits (``tests/test_torch_targets.py``);
+the ResNet head has no dropout.  gamma, beta and the running statistics
+are drawn away from their init (``tests/test_torch_resnet_model.py:
+_perturbed``): at the init (running mean 0, beta 0) BatchRenorm maps the
+pooled map's many exact zeros to values within an ulp of 0, whose sign,
+and so whether the next ReLU passes a gradient, is the rounding of each
+framework; thousands of such units differ and move the trunk's gradients
+by up to 20% of their max.  Away from the init the zeros map to values
+far from 0.
+
+The JAX side pools with the jit ``roi_pool`` on the CPU, whose autograd
+splits tied maxima between cells where the port (and the Pallas kernel)
+routes a tie to one cell.  The pooled map is ``relu(norm(group2))``, so
+zero-ties are everywhere; their gradient dies in the ReLU backward either
+way, so the parameter gradients agree.
+
+Guards and tolerances, as ``tests/test_torch_train_step.py`` sets them
+for VGG16: the two trunks agree only to f32 drift, so the gaps between
+neighbouring ranked RPN scores and between each bag's best and second-best
+malignant logit must exceed 10x the measured drift, and every pooled ROI
+corner must quantise to the same feature cell on both sides; then keep
+sets, labels and the selected instances are identical.  Class logits and
+box deltas agree to 2e-5 of their max (``tests/test_torch_resnet_model.py``
+measured the trunk's drift at <= 3.1e-6 of its max), class probabilities
+to 1e-4, ROIs to ``tests/test_torch_engine.py``'s BOX_ATOL.  The RPN's 1x1
+box kernel is scaled by 0.03, so the decoded boxes stay near their anchors
+(He weights through the residual stack, in value the same in both
+BatchRenorm modes, leave the RPN features at std ~10), and its class
+kernel by 0.03 (BN) or 0.3 (GN, whose features are normalised), so the
+ranked probabilities are neither f32 ties at 1.0 nor crowded at 0.5; the
+seeds (0 for BN, 7 for GN) clear the score guard with the largest margin
+of seeds 0-23 (BN) and 0-7 (GN).  Losses agree to 1e-4 relative.  Adam (eps 0.1) moves a parameter by lr * g / (|g| + 0.1),
+and a few ReLU units within the drift of 0 take opposite signs, so each
+updated tensor is held to 5e-2 * lr in every element and 5e-3 * lr in
+99.9% of them.  The updated running statistics are held to 2e-5 of each
+tensor's max, the trunk's f32 drift.  The MIL step leaves the running
+statistics bit for bit."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tests.test_engine import tiny_cfg
+from tests.test_torch_engine import BOX_ATOL
+from tests.test_torch_resnet_model import _perturbed
+from tests.test_torch_targets import anchor_uniforms, roi_uniforms
+from tests.test_torch_train_step import _speckle
+from wssdl_bus_tpu.evaluate.detect import get_image_blob as jax_image_blob
+from wssdl_bus_tpu.models.detector import FasterRCNN as JaxFasterRCNN
+from wssdl_bus_tpu.models.detector import rpn_softmax as jax_softmax
+from wssdl_bus_tpu.train.engine import Engine as JaxEngine
+from wssdl_bus_tpu.train.engine import make_optimizer
+from wssdl_bus_tpu_torch.config import Config
+from wssdl_bus_tpu_torch.models.convert import (he_tree, opt_state_from_jax,
+                                                params_from_jax,
+                                                params_to_jax)
+from wssdl_bus_tpu_torch.models.detector import build_detector, rpn_softmax
+from wssdl_bus_tpu_torch.ops.proposal_target import num_candidates
+from wssdl_bus_tpu_torch.train.engine import Engine, StepDraws
+
+CANVAS = (192, 256)
+NET = "Resnet_train"
+STEP = 40000
+LR = 5e-4
+R, P = 16, 16
+A = 9
+OVERRIDES = ["TEST.SCALES", "(192,)", "TEST.MAX_SIZE", "256",
+             "TRAIN.RPN_PRE_NMS_TOP_N", "32", "TRAIN.RPN_POST_NMS_TOP_N",
+             str(P), "TRAIN.BATCH_SIZE", str(R), "TEST.RPN_PRE_NMS_TOP_N",
+             "32", "TEST.RPN_POST_NMS_TOP_N", str(P)]
+LOSS_RTOL = 1e-4
+PARAM_ATOL = 5e-2 * LR
+PARAM_P999 = 5e-3 * LR
+STAT_REL = 2e-5
+REL = 2e-5          # head outputs, of their max: the trunk's f32 drift
+PROB_ATOL = 1e-4    # ... through a softmax of logits up to ~50
+
+
+def _cfgs():
+    jcfg = tiny_cfg().with_overrides(OVERRIDES)
+    flat = []
+    for sec in ("TRAIN", "TEST"):
+        for k, v in getattr(jcfg, sec).__dict__.items():
+            if isinstance(v, (int, float)) and not isinstance(v, bool):
+                flat += [f"{sec}.{k}", repr(v)]
+    return jcfg, Config().with_overrides(flat)
+
+
+def _flat(tree, prefix=()):
+    for k, v in tree.items():
+        if isinstance(v, dict) or hasattr(v, "items"):
+            yield from _flat(dict(v), prefix + (k,))
+        else:
+            yield prefix + (k,), np.asarray(v)
+
+
+def _build(norm, seed, rpn_scale):
+    torch.set_num_threads(2)
+    jcfg, cfg = _cfgs()
+    assert cfg.TRAIN.BATCH_SIZE == R and cfg.TEST.RPN_POST_NMS_TOP_N == P
+    port = build_detector(NET, device="cpu", depth=18, norm=norm)
+    he = _perturbed(he_tree(params_to_jax(port.state_dict()), seed), seed)
+    he["trunk"]["params"]["rpn_cls_score"]["conv"]["kernel"] *= rpn_scale
+    he["trunk"]["params"]["rpn_bbox_pred"]["conv"]["kernel"] *= 0.03
+    port.load_state_dict(params_from_jax(he))
+    jm = JaxFasterRCNN(backbone="Resnet", depth=18, norm=norm, remat=False)
+    jeng = JaxEngine(jm, jcfg, CANVAS)
+    jvars = jax.tree.map(jnp.asarray, he)
+    params = {"trunk": jvars["trunk"]["params"],
+              "head": jvars["head"]["params"]}
+    # what Engine.init builds (ResNet: nothing frozen), without its
+    # full-canvas init pass
+    jeng._tx = make_optimizer("adam", jcfg,
+                              jax.tree.map(lambda _: True, params))
+    jeng._stem_frozen = False
+    opt_state = jeng.tx.init(params)
+
+    rng = np.random.RandomState(seed)
+    blobs, gts = [], np.zeros((3, 20, 5), np.float32)
+    s = 192 / 150
+    for i in range(3):
+        im, (cx, cy) = _speckle(rng)
+        blobs.append(jax_image_blob(im, "Resnet_test", jcfg, CANVAS)[0])
+        if i == 0:
+            gts[0, 0] = [(cx - 30) * s, (cy - 22) * s, (cx + 30) * s,
+                         (cy + 22) * s, 2]
+            gts[0, 1] = [0, 0, 255, 191, 0]   # whole-image background box
+    batch = {"data": np.concatenate(blobs), "gt_boxes": gts,
+             "num_gt_boxes": np.array([2, 0, 0], np.int32),
+             "im_info": np.array([[192, 256, s, 2], [192, 256, s, 2],
+                                  [192, 256, s, 1]], np.float32)}
+    eng = Engine(port, cfg, CANVAS, device="cpu")
+    return dict(jeng=jeng, jvars=jvars, opt_state=opt_state, he=he,
+                batch=batch, eng=eng, port=port, cfg=cfg, seed=seed,
+                train_step=jax.jit(jeng._train_step_impl))
+
+
+@pytest.fixture(scope="module")
+def bn():
+    return _build("BN", 0, 0.03)
+
+
+def _guard_rpn(jscore, score):
+    """Ranked RPN scores: drift small, neighbouring gaps > 10x drift."""
+    jprob = np.asarray(jax_softmax(jscore, A))[..., A:]
+    drift = np.abs(jprob - rpn_softmax(score, A)[..., A:].numpy()).max()
+    gaps = [np.abs(np.diff(np.sort(p.reshape(-1))[-33:])).min()
+            for p in jprob]
+    assert 0 < drift < 1e-4 and min(gaps) > 10 * drift, (gaps, drift)
+    assert np.abs(jprob).max() < 1.0
+
+
+def _cells(*boxes):
+    return np.floor(np.concatenate([b.reshape(-1) for b in boxes]) / 16.0
+                    + 0.5)
+
+
+def _stats(tree):
+    return {p: a for part in ("trunk", "head")
+            for p, a in _flat({part: tree[part].get("batch_stats", {})})}
+
+
+def _check_state(port, jvars, before, moved_stats):
+    """Parameters as test_torch_train_step.py holds them; the running
+    statistics moved (or bitwise unchanged) and near the JAX side's."""
+    got = params_to_jax(port.state_dict())
+    n_moved = 0
+    for part in ("trunk", "head"):
+        want = dict(_flat(jax.tree.map(np.asarray, jvars[part]["params"])))
+        prev = dict(_flat(before[part]["params"]))
+        for path, g in _flat(got[part]["params"]):
+            name = "/".join((part,) + path)
+            assert not np.array_equal(g, prev[path]), name
+            n_moved += 1
+            du = np.abs((g - prev[path]) - (want[path] - prev[path]))
+            assert du.max() <= PARAM_ATOL, (name, du.max() / LR)
+            assert np.quantile(du, 0.999) <= PARAM_P999, (name, du.max() / LR)
+    mine, prev = _stats(got), _stats(before)
+    theirs = _stats(jax.tree.map(np.asarray, jvars))
+    assert mine.keys() == theirs.keys() == prev.keys()
+    for p, a in mine.items():
+        if moved_stats:
+            assert not np.array_equal(a, prev[p]), p
+            err = np.abs(a - theirs[p]).max()
+            assert err <= STAT_REL * np.abs(theirs[p]).max(), (p, err)
+        else:
+            np.testing.assert_array_equal(a, prev[p], err_msg="/".join(p))
+    return n_moved, len(mine)
+
+
+def _combined(s, key):
+    """The JAX forward's outputs (for the guards) and the port's draws."""
+    jeng, batch = s["jeng"], s["batch"]
+    k_at, k_pt, _ = jax.random.split(key, 3)
+    params = {"trunk": s["jvars"]["trunk"]["params"],
+              "head": s["jvars"]["head"]["params"]}
+    jb = {k: jnp.asarray(v) for k, v in batch.items()}
+    jfwd = jax.jit(jeng._forward_train)(params, s["jvars"], jb, key,
+                                        jnp.int32(STEP))
+    draws = StepDraws(
+        anchor_u=torch.from_numpy(anchor_uniforms(k_at, 3, 1,
+                                                  len(jeng.anchors))),
+        roi_u=torch.from_numpy(roi_uniforms(k_pt, 1,
+                                            num_candidates(P, 20, R))))
+    return draws, jfwd
+
+
+def _combined_step(s):
+    """Guards, then one combined step on each side; -> the JAX state."""
+    jeng, eng, batch = s["jeng"], s["eng"], s["batch"]
+    key = jax.random.PRNGKey(s["seed"])
+    draws, jfwd = _combined(s, key)
+    (_, jscore, _, _, jprops, jsamples, _, jcls, _, _) = jfwd
+    before = params_to_jax(s["port"].state_dict())
+    with torch.no_grad():
+        _, _, details = eng.forward_train(batch, STEP, draws)
+    # the guarded forward updated the port's running statistics: put them
+    # back before the step
+    s["port"].load_state_dict(params_from_jax(before))
+    _guard_rpn(jscore, details["rpn_cls_score"])
+    props, samples = details["props"], details["samples"]
+    np.testing.assert_array_equal(props.valid.numpy(),
+                                  np.asarray(jprops.valid))
+    np.testing.assert_array_equal(samples.labels.numpy(),
+                                  np.asarray(jsamples.labels))
+    assert (samples.labels.numpy() > 0).any()
+    np.testing.assert_array_equal(
+        _cells(samples.rois.numpy(), props.boxes[1:].numpy()),
+        _cells(np.asarray(jsamples.rois), np.asarray(jprops.boxes[1:])))
+    mal = np.asarray(jcls)[R:].reshape(2, P, 3)[..., 2]
+    valid_ws = np.asarray(jprops.valid)[1:]
+    for bag in range(2):
+        top2 = np.sort(mal[bag][valid_ws[bag]])[-2:]
+        assert top2[1] - top2[0] > 1e-4, top2
+
+    jvars, jopt, jls = s["train_step"](
+        s["jvars"], s["opt_state"],
+        {k: jnp.asarray(v) for k, v in batch.items()}, key, jnp.float32(LR),
+        jnp.int32(STEP))
+    ls = eng.train_step(batch, LR, STEP, draws)
+    for name, got, want in zip(ls._fields, ls, jls):
+        assert np.isfinite(float(got)), name
+        np.testing.assert_allclose(float(got), float(want), rtol=LOSS_RTOL,
+                                   atol=1e-7, err_msg=name)
+    assert float(ls.mil_cls) > 0 and float(ls.rcnn_box) > 0
+    return jvars, jopt, before
+
+
+def test_inference_step_matches_jax(bn):
+    s = bn
+    data, im_info = s["batch"]["data"][:2], s["batch"]["im_info"][:2]
+    jrois, jvalid, jscore, jprob, jbbox = s["jeng"]._inference_impl(
+        s["jvars"], jnp.asarray(data), jnp.asarray(im_info))
+    rois, valid, cls, prob, bbox = s["eng"].inference_step(data, im_info)
+    with torch.no_grad():
+        s["port"].eval()
+        _, score, _ = s["port"].apply_trunk(torch.from_numpy(data))
+    _, js, _, _ = s["jeng"].model.apply_trunk(s["jvars"], jnp.asarray(data),
+                                              train=False)
+    _guard_rpn(js, score)
+    np.testing.assert_array_equal(valid.numpy(), np.asarray(jvalid))
+    assert valid.numpy().sum() > 0
+    np.testing.assert_allclose(rois.numpy(), np.asarray(jrois), rtol=0,
+                               atol=BOX_ATOL)
+    for got, want in ((cls, jscore), (bbox, jbbox)):
+        want = np.asarray(want)
+        np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                                   atol=REL * np.abs(want).max())
+    np.testing.assert_allclose(prob.numpy(), np.asarray(jprob), rtol=0,
+                               atol=PROB_ATOL)
+    # serving touches no running statistic
+    np.testing.assert_array_equal(
+        s["port"].state_dict()["trunk.backbone.conv0.bn.mean"].numpy(),
+        s["he"]["trunk"]["batch_stats"]["backbone"]["conv0"]["bn"]["mean"])
+
+
+def test_train_steps_match_jax(bn):
+    """One combined step, then one MIL step from the JAX side's state."""
+    s = bn
+    jvars, jopt, before = _combined_step(s)
+    n_params, n_stats = _check_state(s["port"], jvars, before, True)
+    assert (n_params, n_stats) == (149 - 60, 60)
+
+    # the MIL step: both sides from the JAX state after the first step
+    eng = s["eng"]
+    eng.model.load_state_dict(params_from_jax(jax.tree.map(np.asarray,
+                                                           jvars)))
+    eng.opt.load_state_dict(opt_state_from_jax(jax.tree.map(np.asarray,
+                                                            jopt)))
+    wbatch = {k: s["batch"][k][1:] for k in ("data", "im_info")}
+    key2 = jax.random.PRNGKey(s["seed"] + 1)
+    before = params_to_jax(s["port"].state_dict())
+    jvars2, _, jmil = jax.jit(s["jeng"]._train_step_mil_impl)(
+        jvars, jopt, {k: jnp.asarray(v) for k, v in wbatch.items()}, key2,
+        jnp.float32(LR), jnp.int32(STEP))
+    mil = eng.train_step_mil(wbatch, LR, STEP)
+    np.testing.assert_allclose(float(mil), float(jmil), rtol=LOSS_RTOL)
+    assert float(mil) > 0
+    # running statistics bit for bit unchanged on both sides
+    assert _check_state(s["port"], jvars2, before, False) == (89, 60)
+    for p, a in _stats(jax.tree.map(np.asarray, jvars2)).items():
+        np.testing.assert_array_equal(a, _stats(before)[p])
+
+
+def test_eval_step_matches_jax(bn):
+    s = bn
+    eng, cfg = s["eng"], s["cfg"]
+    batch = {k: v[:2].copy() for k, v in s["batch"].items()}
+    batch["gt_boxes"][1] = batch["gt_boxes"][0]
+    batch["num_gt_boxes"] = np.array([2, 2], np.int32)
+    key = jax.random.PRNGKey(s["seed"] + 2)
+    jls, jrois, jprob, jbbox, jlabels = s["jeng"]._eval_impl(
+        s["jvars"], {k: jnp.asarray(v) for k, v in batch.items()}, key,
+        jnp.int32(STEP))
+    k_at, k_pt = jax.random.split(key)
+    n = num_candidates(P, 20, cfg.TRAIN.BATCH_SIZE, include_gt=False)
+    draws = StepDraws(
+        anchor_u=torch.from_numpy(anchor_uniforms(k_at, 2, 2,
+                                                  len(eng.anchors))),
+        roi_u=torch.from_numpy(roi_uniforms(k_pt, 2, n)))
+    s["port"].load_state_dict(params_from_jax(jax.tree.map(np.asarray,
+                                                           s["jvars"])))
+    ls, rois, prob, bbox, labels = eng.eval_step(batch, STEP, draws)
+    np.testing.assert_array_equal(labels.numpy(), np.asarray(jlabels))
+    assert (labels.numpy() >= 0).sum() > 0
+    np.testing.assert_array_equal(np.floor(rois.numpy() / 16.0 + 0.5),
+                                  np.floor(np.asarray(jrois) / 16.0 + 0.5))
+    np.testing.assert_allclose(prob.numpy(), np.asarray(jprob), rtol=0,
+                               atol=PROB_ATOL)
+    jb = np.asarray(jbbox)
+    np.testing.assert_allclose(bbox.numpy(), jb, rtol=0,
+                               atol=REL * np.abs(jb).max())
+    for name, got, want in zip(ls._fields, ls, jls):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   rtol=LOSS_RTOL, atol=1e-7, err_msg=name)
+    # evaluation touches no running statistic
+    np.testing.assert_array_equal(
+        s["port"].state_dict()["head.group3_norm.var"].numpy(),
+        s["he"]["head"]["batch_stats"]["group3_norm"]["var"])
+
+
+def test_gn_combined_step_matches_jax():
+    s = _build("GN", 7, 0.3)
+    jvars, _, before = _combined_step(s)
+    assert _check_state(s["port"], jvars, before, True) == (89, 0)

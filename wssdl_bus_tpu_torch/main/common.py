@@ -5,8 +5,8 @@ arguments).
 Used by ``main/test.py``, ``main/train.py`` and ``main/train_alter.py``.
 What the port has no path for yet raises ``NotImplementedError`` naming
 the ROADMAP item, never silently ignored: ``--bf16`` (A7), ``--mesh_data``
-/ ``--mesh_model`` > 1 (A10), ``Resnet_*`` networks (A6), ``--remat``.  The JAX
-package's XLA compilation cache has no counterpart here.
+/ ``--mesh_model`` > 1 (A10), ``--remat``.  The JAX package's XLA
+compilation cache has no counterpart here.
 """
 
 from __future__ import annotations
@@ -25,13 +25,13 @@ from wssdl_bus_tpu_torch.data.dataset import (get_imdb, get_training_roidb,
 def add_common_args(parser: argparse.ArgumentParser):
     parser.add_argument("--network", default="VGGnet_train", type=str,
                         help="name of the network (VGGnet_train / "
-                             "VGGnet_test; Resnet_* is not ported yet)")
+                             "VGGnet_test / Resnet_train / Resnet_test)")
     parser.add_argument("--net_depth", default=18, type=int,
                         help="ResNet depth (18, 34, 50, 101)")
     parser.add_argument("--dataset", default="SNUBH", type=str,
                         help="dataset mode (SNUBH / SNUBH_FG / UDIAT)")
     parser.add_argument("--norm_type", default="BN", type=str,
-                        help="normalization type (BN / GN)")
+                        help="ResNet normalization type (BN / GN)")
     parser.add_argument("--bf16", action="store_true",
                         help="bfloat16 compute (not ported yet)")
     parser.add_argument("--remat", default=None,
@@ -70,23 +70,30 @@ def check_ported(args) -> None:
         raise NotImplementedError(
             "--remat: the port has no activation-remat option; its "
             "training memory is measured without one (PERF.md)")
-    if args.network.startswith("Resnet"):
-        raise NotImplementedError(
-            f"--network {args.network}: the ResNet backbones are not ported "
-            "yet (ROADMAP.md A6)")
 
 
-def build_model(args, freeze_stem: bool = True):
+def build_model(args, cfg: Config, freeze_stem: bool = True):
     """The one CLI -> detector construction, on ``args.device`` (PyTorch's
-    default init: a snapshot or converted weights are loaded into it).
-    ``freeze_stem`` False lets a training network's conv1/conv2 train
-    (``--unfreeze_stem``); the stem kernels then never run in training
+    default init: a snapshot or converted weights are loaded into it):
+    ``--network``, and for ``Resnet_*`` ``--net_depth``, ``--norm_type``
+    (BN / GN) and the GN group heuristic of ``cfg``
+    (TRAIN.GN_MIN_NUM_G / GN_MIN_CHS_PER_G).  ``freeze_stem`` False lets a
+    VGG16 training network's conv1/conv2 train (``--unfreeze_stem``); the
+    stem kernels then never run in training
     (``models/detector.py:stem_is_frozen``)."""
     from wssdl_bus_tpu_torch.models.detector import build_detector
 
     check_ported(args)
+    if args.network.startswith("Resnet") and args.norm_type not in ("BN",
+                                                                     "GN"):
+        # the JAX CLI builds any other value as a detector with neither
+        # norms nor conv biases, a tree no port model has
+        raise ValueError(f"--norm_type must be BN or GN for a ResNet, got "
+                         f"{args.norm_type!r}")
     return build_detector(args.network, num_classes=3, device=args.device,
-                          freeze_stem=freeze_stem)
+                          freeze_stem=freeze_stem, depth=args.net_depth,
+                          norm=args.norm_type, gn_params=(cfg.TRAIN.GN_MIN_NUM_G,
+                                                cfg.TRAIN.GN_MIN_CHS_PER_G))
 
 
 def add_train_args(parser: argparse.ArgumentParser):

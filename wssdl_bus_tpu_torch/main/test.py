@@ -5,10 +5,12 @@ the reference's ``code/main/test.py``):
         --imdb_test bus_test --data_dir <SNUBH_BUS> [--batch_size 8] \\
         [--device cpu]
 
-Reads the imdb, sizes the static canvas over its images, builds the VGG16
-detector, restores the port's snapshot (``train/checkpoint.py``), runs
-``test_net`` and writes ``detections.pkl``, ``eval.txt`` (AP / CorLoc) and
-the FROC points to ``--output_dir``.  Runs on CUDA unless ``--device cpu``.
+Reads the imdb, sizes the static canvas over its images, builds the
+detector ``--network`` names (``VGGnet_test``, or ``Resnet_test`` with
+``--net_depth`` / ``--norm_type``), restores the port's snapshot
+(``train/checkpoint.py``), runs ``test_net`` and writes ``detections.pkl``,
+``eval.txt`` (AP / CorLoc) and the FROC points to ``--output_dir``.  Runs
+on CUDA unless ``--device cpu``.
 ``--int8`` raises (ROADMAP.md A7), as do the options ``main/common.py:
 check_ported`` names.
 """
@@ -75,7 +77,7 @@ def main(argv=None, timings: dict = None):
     canvas = max_canvas(sizes, cfg.TEST.SCALES[0], cfg.TEST.MAX_SIZE)
     print(f"static canvas: {canvas}")
 
-    model = build_model(args)
+    model = build_model(args, cfg)
     variables, step = load_checkpoint(args.model, device=args.device)
     model.load_state_dict(variables)
     print(f"restored snapshot at iter {step} from {args.model}")

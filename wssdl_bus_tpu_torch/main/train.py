@@ -2,15 +2,16 @@
 ``wssdl_bus_tpu/main/train.py``, the reference's ``code/main/train.py``):
 
     python -m wssdl_bus_tpu_torch.main.train --data_dir <SNUBH_BUS> \\
-        --pretrained_model <VGG16 .npy or torchvision .pth> \\
+        --pretrained_model <VGG16 / ResNet .npy, or torchvision VGG16 .pth> \\
         [--max_iters 60000] [--output_dir ./trained_model/run] \\
         [--set_cfgs TRAIN.SNAPSHOT_ITERS 100 TRAIN.TEST_ITERS 100] \\
         [--resume] [--device cpu]
 
-Reads the three imdbs, sizes the static canvas, builds the VGG16 detector
-and trains it with ``train/solver.py:train_net`` (in-loop evaluation,
-snapshots, ``--resume``).  Runs on CUDA unless ``--device cpu``; the
-options ``main/common.py:check_ported`` names raise.
+Reads the three imdbs, sizes the static canvas, builds the detector
+(``--network VGGnet_train`` or ``Resnet_train`` with ``--net_depth`` /
+``--norm_type``) and trains it with ``train/solver.py:train_net`` (in-loop
+evaluation, snapshots, ``--resume``).  Runs on CUDA unless ``--device
+cpu``; the options ``main/common.py:check_ported`` names raise.
 """
 
 from __future__ import annotations
@@ -39,10 +40,10 @@ def setup(args):
     ``train_net_alter``), after printing the arguments and the config."""
     print("Called with args:")
     print(args)
-    model = build_model(args, freeze_stem=not args.unfreeze_stem)
     cfg = build_config(args)
     print("Using config:")
     pprint.pprint(cfg)
+    model = build_model(args, cfg, freeze_stem=not args.unfreeze_stem)
     seed_all(args, cfg)
     roidb_s, roidb_ws, imdb_test, roidb_test, canvas = \
         load_train_data(args, cfg)

@@ -3,13 +3,17 @@
 The JAX detector's variables (``FasterRCNN.init_variables`` in
 ``wssdl_bus_tpu/models/detector.py:131-143``) are a tree
 ``{"trunk": {"params": {...}}, "head": {"params": {...}}}`` whose leaves are
-``kernel``/``bias`` under module paths like ``backbone/conv1_1/conv``.  Given
-as nested dicts of numpy arrays (``jax.tree.map(np.asarray, variables)``),
-:func:`params_from_jax` maps them onto this package's state dict, whose keys
-follow the same path (``trunk.backbone.conv1_1.conv.weight``):
+``kernel``/``bias`` under module paths like ``backbone/conv1_1/conv``, and for
+ResNet the norms' ``gamma``/``beta`` and a ``batch_stats`` collection of
+BatchRenorm's running ``mean``/``var``.  Given as nested dicts of numpy
+arrays (``jax.tree.map(np.asarray, variables)``), :func:`params_from_jax`
+maps them onto this package's state dict, whose keys follow the same path
+(``trunk.backbone.conv1_1.conv.weight``, ``trunk.backbone.conv0.bn.mean``):
 
   * conv kernels HWIO -> OIHW;
-  * dense kernels [in, out] -> [out, in].
+  * dense kernels [in, out] -> [out, in];
+  * gamma, beta, mean, var as they are (the running statistics are
+    buffers).
 
 fc6's rows are in NHWC (h, w, c) flatten order on both sides (the port's
 ROI pool writes the same order), so no row permutation is needed.
@@ -17,8 +21,8 @@ ROI pool writes the same order), so no row permutation is needed.
 :func:`opt_state_from_jax` carries an optax optimizer state across the
 same way, into ``train/engine.py:Optimizer.load_state_dict``'s format.
 :func:`reference_init_` draws the JAX package's initialisation (truncated
-normal, std 0.01; 0.001 for ``bbox_pred``; zero biases) from a seeded
-``torch.Generator``.
+normal, std 0.01; 0.001 for ``bbox_pred``; zero biases; the norms at their
+identity) from a seeded ``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -39,74 +43,102 @@ def _leaves(tree: dict, prefix: tuple = ()):
             yield prefix + (k,), v
 
 
+_PARAM_LEAVES = ("bias", "gamma", "beta")     # same name on both sides
+_STAT_LEAVES = ("mean", "var")                 # BatchRenorm's batch_stats
+
+
 def params_from_jax(variables) -> dict:
-    """Flax variable tree (nested dicts of numpy arrays) -> state dict."""
+    """Flax variable tree (nested dicts of numpy arrays) -> state dict: the
+    ``params`` collection (kernels, biases, the norms' gamma / beta) and,
+    where a part has one, the ``batch_stats`` collection (BatchRenorm's
+    running ``mean`` / ``var``, buffers of the same names)."""
     sd = {}
     for part in _PARTS:
-        for path, arr in _leaves(variables[part]["params"]):
-            a = np.asarray(arr, dtype=np.float32)
-            *mod, leaf = path
-            if leaf == "kernel":
-                a = a.transpose(3, 2, 0, 1) if a.ndim == 4 else a.T
-                name = "weight"
-            elif leaf == "bias":
-                name = "bias"
-            else:
-                raise KeyError(f"unexpected leaf {'/'.join(path)}")
-            sd[".".join((part, *mod, name))] = torch.tensor(a)
+        tree = variables[part]
+        for coll in ("params", "batch_stats"):
+            if coll not in tree:
+                continue
+            for path, arr in _leaves(tree[coll]):
+                a = np.asarray(arr, dtype=np.float32)
+                *mod, leaf = path
+                if coll == "params" and leaf == "kernel":
+                    a = a.transpose(3, 2, 0, 1) if a.ndim == 4 else a.T
+                    name = "weight"
+                elif leaf in (_PARAM_LEAVES if coll == "params"
+                              else _STAT_LEAVES):
+                    name = leaf
+                else:
+                    raise KeyError(f"unexpected leaf {coll}/"
+                                   f"{'/'.join(path)}")
+                sd[".".join((part, *mod, name))] = torch.tensor(a)
     return sd
 
 
 def params_to_jax(state_dict) -> dict:
     """State dict -> the flax variable tree of numpy arrays (inverse of
-    :func:`params_from_jax`)."""
+    :func:`params_from_jax`); a part gets a ``batch_stats`` collection only
+    where it holds running statistics, as flax's tree does."""
     tree = {part: {"params": {}} for part in _PARTS}
     for key, t in state_dict.items():
         part, *mod, name = key.split(".")
         a = t.detach().cpu().numpy()
+        coll = "batch_stats" if name in _STAT_LEAVES else "params"
         if name == "weight":
             a = a.transpose(2, 3, 1, 0) if a.ndim == 4 else a.T
             leaf = "kernel"
         else:
             leaf = name
-        node = tree[part]["params"]
+        node = tree[part].setdefault(coll, {})
         for m in mod:
             node = node.setdefault(m, {})
         node[leaf] = np.array(a, order="C")   # a copy, never a view
     return tree
 
 
+# the leaves that are not drawn: their init value
+_CONSTANT_INIT = {"bias": 0.0, "beta": 0.0, "gamma": 1.0, "mean": 0.0,
+                  "var": 1.0}
+
+
 def he_tree(variables, seed: int, input_scale: float = 1.0) -> dict:
     """The same tree with every kernel drawn He-normal (std sqrt(2/fan_in),
-    fan_in = all kernel dims but the last) and every bias zero, from
-    ``np.random.RandomState(seed)`` in sorted path order.
+    fan_in = all kernel dims but the last) from
+    ``np.random.RandomState(seed)`` in sorted path order, every bias and
+    beta zero, every gamma one, and BatchRenorm's running statistics at
+    their init (mean 0, var 1).
 
     He scaling keeps activations alive through VGG16's 13 convs; the JAX
     package's truncated-normal std 0.01 leaves conv5_3 nearly featureless
     and the RPN scores in near-ties, where tie order would pick the
     proposals.  He assumes unit-scale inputs: the serving blob is in pixel
-    units (mean-subtracted, x255), so ``input_scale`` (its rough std)
-    divides conv1_1's kernel.  With zero biases the ReLU trunk is positively
-    homogeneous, and unscaled weights would push every softmax to exact 0/1
-    ties."""
+    units (mean-subtracted, x255 for VGG16), so ``input_scale`` (its rough
+    std) divides the first conv's kernel (VGG16's conv1_1, ResNet's conv0).
+    With zero biases the ReLU trunk is positively homogeneous, and unscaled
+    weights would push every softmax to exact 0/1 ties."""
     rng = np.random.RandomState(seed)
     out = {}
     for part in _PARTS:
-        tree = {}
-        for path, arr in _leaves(variables[part]["params"]):
-            shape = np.shape(arr)
-            if path[-1] == "kernel":
-                std = np.sqrt(2.0 / np.prod(shape[:-1]))
-                if "conv1_1" in path:
-                    std /= input_scale
-                val = (rng.standard_normal(shape) * std).astype(np.float32)
-            else:
-                val = np.zeros(shape, np.float32)
-            node = tree
-            for k in path[:-1]:
-                node = node.setdefault(k, {})
-            node[path[-1]] = val
-        out[part] = {"params": tree}
+        out[part] = {}
+        for coll in ("params", "batch_stats"):
+            if coll not in variables[part]:
+                continue
+            tree = {}
+            for path, arr in _leaves(variables[part][coll]):
+                shape = np.shape(arr)
+                if path[-1] == "kernel":
+                    std = np.sqrt(2.0 / np.prod(shape[:-1]))
+                    if "conv1_1" in path or "conv0" in path:
+                        std /= input_scale
+                    val = (rng.standard_normal(shape) * std).astype(
+                        np.float32)
+                else:
+                    val = np.full(shape, _CONSTANT_INIT[path[-1]],
+                                  np.float32)
+                node = tree
+                for k in path[:-1]:
+                    node = node.setdefault(k, {})
+                node[path[-1]] = val
+            out[part][coll] = tree
     return out
 
 
@@ -168,8 +200,10 @@ def opt_state_from_jax(opt_state) -> dict:
 def reference_init_(model: torch.nn.Module, seed: int) -> torch.nn.Module:
     """The JAX package's initialisation in place: every kernel truncated
     normal (std 0.01, cut at 2 std; std 0.001 for ``bbox_pred``, its
-    ``models/vgg.py:83``), every bias zero, drawn from a CPU
-    ``torch.Generator`` seeded with ``seed`` in sorted state-dict order."""
+    ``models/vgg.py:83`` / ``models/resnet.py:157``), every bias and beta
+    zero, every gamma one, BatchRenorm's running mean 0 and var 1; the
+    kernels drawn from a CPU ``torch.Generator`` seeded with ``seed`` in
+    sorted state-dict order."""
     gen = torch.Generator().manual_seed(seed)
     sd = model.state_dict()
     for key in sorted(sd):
@@ -180,6 +214,6 @@ def reference_init_(model: torch.nn.Module, seed: int) -> torch.nn.Module:
                 torch.empty(t.shape), std=std, a=-2 * std, b=2 * std,
                 generator=gen)
         else:
-            val = torch.zeros(t.shape)
+            val = torch.full(t.shape, _CONSTANT_INIT[key.rsplit(".", 1)[-1]])
         t.copy_(val)
     return model

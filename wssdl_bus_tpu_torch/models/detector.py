@@ -15,6 +15,9 @@ import torch
 from torch import nn
 
 from wssdl_bus_tpu_torch.models.layers import ConvBlock
+from wssdl_bus_tpu_torch.models.resnet import (RESNET_DEFS, ResNetBackbone,
+                                               ResNetRCNNHead,
+                                               feature_channels)
 from wssdl_bus_tpu_torch.models.vgg import VGG16Backbone, VGGRCNNHead
 from wssdl_bus_tpu_torch.ops.conv1 import fused_stem_ok, vgg_stem_plain
 from wssdl_bus_tpu_torch.ops.conv1_cuda import vgg_stem_fused
@@ -25,26 +28,41 @@ from wssdl_bus_tpu_torch.utils import resolve_device
 
 
 class TrunkRPN(nn.Module):
-    """VGG16 features + RPN convs: a 3x3 conv to 512, then 1x1 convs to 2A
-    class logits and 4A box deltas (reference VGGnet_train_bus.py:63-73)."""
+    """Backbone features + RPN convs: a 3x3 conv (512 for VGG16 with a
+    bias; for ResNet 256 basic / 1024 bottleneck, with the backbone's
+    norm), then 1x1 convs to 2A class logits and 4A box deltas (reference
+    VGGnet_train_bus.py:63-73, Resnet_train_bus.py:66-74)."""
 
-    def __init__(self, num_anchors: int = 9):
+    def __init__(self, num_anchors: int = 9, backbone: str = "VGGnet",
+                 depth: int = 50, norm=None, gn_params=(8, 4)):
         super().__init__()
-        self.backbone = VGG16Backbone()
-        c = VGG16Backbone.out_channels
-        self.rpn_conv = ConvBlock(c, 512, 3)
-        self.rpn_cls_score = ConvBlock(512, 2 * num_anchors, 1,
+        if backbone == "VGGnet":
+            self.backbone = VGG16Backbone()
+            c, rpn_ch, rpn_norm = VGG16Backbone.out_channels, 512, None
+        else:
+            self.backbone = ResNetBackbone(depth, norm, gn_params)
+            c = rpn_ch = feature_channels(depth)
+            rpn_norm = norm
+        self.rpn_conv = ConvBlock(c, rpn_ch, 3, norm=rpn_norm,
+                                  gn_params=gn_params)
+        self.rpn_cls_score = ConvBlock(rpn_ch, 2 * num_anchors, 1,
                                        padding="VALID", relu=False)
-        self.rpn_bbox_pred = ConvBlock(512, 4 * num_anchors, 1,
+        self.rpn_bbox_pred = ConvBlock(rpn_ch, 4 * num_anchors, 1,
                                        padding="VALID", relu=False)
 
     def forward(self, data, stem_done: bool = False):
         """data [B, H, W, 3] -> (feat, rpn_cls_score, rpn_bbox_pred), each
-        NHWC and contiguous.  With ``stem_done`` ``data`` is the pooled
-        conv1 output [B, H/2, W/2, 64] (models/vgg.py:VGG16Backbone)."""
+        NHWC and contiguous.  With ``stem_done`` (VGG16 only) ``data`` is
+        the pooled conv1 output [B, H/2, W/2, 64]
+        (models/vgg.py:VGG16Backbone)."""
         # the NCHW view of an NHWC tensor is channels_last memory: no copy
         x = data.permute(0, 3, 1, 2)
-        feat = self.backbone(x, stem_done)
+        if isinstance(self.backbone, VGG16Backbone):
+            feat = self.backbone(x, stem_done)
+        elif stem_done:
+            raise ValueError("stem_done is a VGG-only fast path")
+        else:
+            feat = self.backbone(x)
         rpn = self.rpn_conv(feat)
         score = self.rpn_cls_score(rpn)
         bbox = self.rpn_bbox_pred(rpn)
@@ -66,17 +84,30 @@ def rpn_softmax(rpn_cls_score: torch.Tensor, num_anchors: int) -> torch.Tensor:
 
 
 class FasterRCNN(nn.Module):
-    """The VGG16 detector: ``trunk`` (TrunkRPN) and ``head`` (VGGRCNNHead).
-    State-dict keys mirror the JAX variable tree (``models/convert.py``)."""
+    """The detector: ``trunk`` (TrunkRPN) and ``head`` (``VGGRCNNHead``, or
+    ``ResNetRCNNHead`` for ``backbone="Resnet"`` at ``depth`` with ``norm``
+    "BN" / "GN" / None).  ``gn_params``: (GN_MIN_NUM_G, GN_MIN_CHS_PER_G),
+    the group heuristic of every ``GroupNormRef``.  State-dict keys mirror
+    the JAX variable tree (``models/convert.py``); BatchRenorm's running
+    statistics are buffers, so ``state_dict()`` carries them."""
 
-    backbone = "VGGnet"
-
-    def __init__(self, num_classes: int = 3, num_anchors: int = 9):
+    def __init__(self, num_classes: int = 3, num_anchors: int = 9,
+                 backbone: str = "VGGnet", depth: int = 50, norm=None,
+                 gn_params=(8, 4)):
         super().__init__()
+        if backbone not in ("VGGnet", "Resnet"):
+            raise KeyError(f"unknown backbone {backbone!r}")
+        if backbone == "Resnet" and depth not in RESNET_DEFS:
+            raise KeyError(f"unsupported ResNet depth {depth}")
+        self.backbone = backbone
+        self.depth = depth
+        self.norm = norm if backbone == "Resnet" else None
         self.num_classes = num_classes
         self.num_anchors = num_anchors
-        self.trunk = TrunkRPN(num_anchors)
-        self.head = VGGRCNNHead(num_classes)
+        self.trunk = TrunkRPN(num_anchors, backbone, depth, self.norm,
+                              gn_params)
+        self.head = (VGGRCNNHead(num_classes) if backbone == "VGGnet" else
+                     ResNetRCNNHead(depth, self.norm, num_classes, gn_params))
 
     def apply_trunk(self, data, stem_frozen: bool = True,
                     plain_ops: bool = False):
@@ -101,9 +132,10 @@ class FasterRCNN(nn.Module):
         training runs the library stem with real gradients.  ``plain_ops``
         takes the kernels' plain versions instead (``vgg_stem_plain``,
         ``vgg_conv2_pool_plain``).  (The JAX tail also requires the f32
-        compute path; the port has no other compute dtype yet.)"""
+        compute path; the port has no other compute dtype yet.)  A ResNet
+        trunk has no stem kernel and runs its modules as they are."""
         stem = None
-        if stem_frozen or not self.training:
+        if self.backbone == "VGGnet" and (stem_frozen or not self.training):
             stem = self._stem(data, plain_ops)
         if stem is None:
             return self.trunk(data)
@@ -126,9 +158,11 @@ class FasterRCNN(nn.Module):
         return None
 
     def apply_head(self, roi_feats, keep=None, generator=None):
-        """-> (cls_score [N, C], bbox_pred [N, 4C]).  In training mode the
-        head's dropouts use the masks ``keep`` (fc6, fc7) or draw from
-        ``generator`` (models/vgg.py:VGGRCNNHead)."""
+        """-> (cls_score [N, C], bbox_pred [N, 4C]) of the flat fc6 operand
+        [N, 7*7*C] (VGG16) or the pooled [N, 7, 7, C] (ResNet).  In
+        training mode the VGG head's dropouts use the masks ``keep`` (fc6,
+        fc7) or draw from ``generator`` (models/vgg.py:VGGRCNNHead); the
+        ResNet head has no dropout."""
         return self.head(roi_feats, keep, generator)
 
 
@@ -161,24 +195,31 @@ def freeze_vgg_stem(model: FasterRCNN) -> FasterRCNN:
 
 
 def build_detector(name: str, num_classes: int = 3, device=None,
-                   freeze_stem: bool = True) -> FasterRCNN:
+                   freeze_stem: bool = True, depth: int = 50, norm=None,
+                   gn_params=(8, 4)) -> FasterRCNN:
     """Factory mirroring the JAX package's ``build_detector`` names:
-    'VGGnet_test' builds the VGG16 detector in eval mode, 'VGGnet_train'
-    (and '_alter' variants) in training mode with conv1/conv2 frozen
-    (:func:`freeze_vgg_stem`) unless ``freeze_stem`` is False (from-scratch
-    runs: a frozen random stem leaves the trunk featureless), on ``device``
-    (CUDA unless named; raises without a card).  Weights are PyTorch's
-    default init: load converted or seeded weights with
-    ``models/convert.py``."""
+    '*_test' builds the detector in eval mode, '*_train' (and '_alter'
+    variants) in training mode.  'VGGnet_*' is VGG16, with conv1/conv2
+    frozen in training (:func:`freeze_vgg_stem`) unless ``freeze_stem`` is
+    False (from-scratch runs: a frozen random stem leaves the trunk
+    featureless).  'Resnet_*' is the ResNet of ``depth`` (18, 34, 50, 101)
+    with ``norm`` ("BN", "GN" or None) and ``gn_params``; nothing of it is
+    frozen (``freeze_stem`` is ignored, as the JAX package's
+    ``Engine.init`` ignores it).  On ``device`` (CUDA unless named; raises
+    without a card), channels_last.  Weights are PyTorch's default init:
+    load converted or seeded weights with ``models/convert.py``."""
     if name.startswith("Resnet"):
-        raise NotImplementedError(
-            f"{name}: the ResNet backbones are not ported yet (the ResNet "
-            "slice, ROADMAP.md)")
-    if not name.startswith("VGGnet"):
+        kw = dict(backbone="Resnet", depth=depth, norm=norm,
+                  gn_params=tuple(gn_params))
+    elif name.startswith("VGGnet"):
+        kw = dict(backbone="VGGnet")
+    else:
         raise KeyError(f"unknown network name {name}")
     dev = resolve_device(device)
-    model = FasterRCNN(num_classes=num_classes).to(
+    model = FasterRCNN(num_classes=num_classes, **kw).to(
         device=dev, memory_format=torch.channels_last)
     if "_train" in name:
-        return (freeze_vgg_stem(model) if freeze_stem else model).train()
+        if model.backbone == "VGGnet" and freeze_stem:
+            freeze_vgg_stem(model)
+        return model.train()
     return model.eval()

@@ -10,19 +10,27 @@ from scratch, as in the reference.
 The matching works on the flax-layout numpy tree that ``models/convert.py:
 params_to_jax`` makes of the port's state dict, with the JAX package's
 rules, and the result goes back through ``params_from_jax``:
-:func:`load_pretrained_model` does both.  Each checkpoint scope (flat for
-VGG: ``conv1_1`` ... ``fc7``) is matched by SUFFIX against a variable's
+:func:`load_pretrained_model` does both, running statistics included (the
+tree's ``batch_stats`` collection, BatchRenorm's buffers).  Each checkpoint
+scope (flat for VGG: ``conv1_1`` ... ``fc7``; slash-nested for ResNet:
+``group0/block0/conv1``, ``group2/norm``) is matched by SUFFIX against a
+variable's
 "semantic path" (its module path without the containers ``conv`` /
 ``dense`` / ``bn`` / ``gn``, the collection roots and ``backbone``), with
 the aliases ``<name>_norm`` == ``<name>/norm`` and ``rpn_conv/3x3`` ==
 ``rpn_conv``; an ambiguous or missing scope is skipped, never guessed, and
-an array whose shape does not fit (after a squeeze) is skipped.  TF conv
-kernels are [kh, kw, cin, cout], flax's layout; dense kernels [cin, cout].
+an array whose shape does not fit (after a squeeze: the reference's group
+norm stores gamma / beta as [1, 1, 1, C]) is skipped.  ``weights`` /
+``biases`` / ``gamma`` / ``beta`` land in ``params``, ``moving_mean`` /
+``moving_variance`` (or ``mean`` / ``variance``) in ``batch_stats``; the
+``batch_normalization`` segment ``tf.layers.batch_normalization`` inserts
+is dropped wherever the scope / variable split puts it.  TF conv kernels
+are [kh, kw, cin, cout], flax's layout; dense kernels [cin, cout].
 
 ``.pth`` / ``.pt`` files are torchvision ``vgg16`` state dicts, converted by
 :func:`torchvision_vgg16_to_reference` with the input normalisation folded
-into conv1_1 exactly.  ResNet is not supported (nor ported): torchvision's
-resnets are post-activation, the reference's pre-activation.
+into conv1_1 exactly.  They are VGG16 only, as in the JAX package:
+torchvision's resnets are post-activation, the reference's pre-activation.
 """
 
 from __future__ import annotations

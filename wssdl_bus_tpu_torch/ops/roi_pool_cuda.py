@@ -136,18 +136,21 @@ def _plain_forward(feat, rois, pooled_h, pooled_w, spatial_scale, flavor,
 
 
 class _RoiPoolFc(torch.autograd.Function):
-    """The pool with its backward: the kernels, or with ``plain`` the plain
-    versions.  Saves (feat, rois) only, never the pooled output."""
+    """The pool with its backward: the kernels, whose forward launches
+    count on the wrapper ``counter``, or with ``plain`` the plain versions.
+    Saves (feat, rois) only, never the pooled output."""
 
     @staticmethod
     def forward(ctx, feat, rois, pooled_h, pooled_w, spatial_scale, flavor,
-                out_dtype, plain):
+                out_dtype, plain, counter):
         ctx.save_for_backward(feat, rois)
         ctx.args = (pooled_h, pooled_w, spatial_scale, flavor)
         ctx.bf16 = out_dtype == torch.bfloat16
         ctx.plain = plain
-        fwd = _plain_forward if plain else _launch_forward
-        return fwd(feat, rois, *ctx.args, out_dtype)
+        if plain:
+            return _plain_forward(feat, rois, *ctx.args, out_dtype)
+        return _launch_forward(feat, rois, *ctx.args, out_dtype,
+                               counter=counter)
 
     @staticmethod
     def backward(ctx, grad):
@@ -158,7 +161,7 @@ class _RoiPoolFc(torch.autograd.Function):
             bwd = roi_pool_fc_backward_bf16 if ctx.bf16 \
                 else roi_pool_fc_backward
         dfeat = bwd(feat, rois, grad.contiguous(), *ctx.args)
-        return dfeat, None, None, None, None, None, None, None
+        return dfeat, None, None, None, None, None, None, None, None
 
 
 def roi_pool_fc_plain(feat: torch.Tensor, rois: torch.Tensor,
@@ -173,7 +176,7 @@ def roi_pool_fc_plain(feat: torch.Tensor, rois: torch.Tensor,
         raise TypeError(f"out_dtype must be float32 or bfloat16, got "
                         f"{out_dtype}")
     return _RoiPoolFc.apply(feat, rois, pooled_h, pooled_w, spatial_scale,
-                            flavor, out_dtype, True)
+                            flavor, out_dtype, True, None)
 
 
 def _check_cuda(feat, rois, flavor, out_dtype=torch.float32):
@@ -200,9 +203,11 @@ def _check_cuda(feat, rois, flavor, out_dtype=torch.float32):
 
 
 def _launch_forward(feat, rois, pooled_h, pooled_w, spatial_scale, flavor,
-                    out_dtype, plan=None):
+                    out_dtype, plan=None, counter=None):
     """The forward kernel on :func:`forward_plan`'s path; ``plan`` (cs,
-    rblk) overrides it, for measurements only (``chip_smoke.py``)."""
+    rblk) overrides it, for measurements only (``chip_smoke.py``).  The
+    launch counts on ``counter`` (a wrapper with ``.launches`` and
+    ``.paths``; by default the wrapper of ``out_dtype``)."""
     b, h, w, c = feat.shape
     p = rois.shape[1]
     out = torch.empty((b, p, pooled_h * pooled_w * c), dtype=out_dtype,
@@ -218,11 +223,24 @@ def _launch_forward(feat, rois, pooled_h, pooled_w, spatial_scale, flavor,
             out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"roi_pool kernel launch failed: cudaError {err}")
-    wrapper = roi_pool_fc_bf16 if out_dtype == torch.bfloat16 \
-        else roi_pool_fc
+    wrapper = counter or (roi_pool_fc_bf16 if out_dtype == torch.bfloat16
+                          else roi_pool_fc)
     wrapper.launches += 1
     wrapper.paths["smem" if cs else "direct"] += 1
     return out
+
+
+def _pool(feat, rois, pooled_h, pooled_w, spatial_scale, flavor, out_dtype,
+          counter):
+    """The differentiable pool of every wrapper: the plain versions for CPU
+    tensors, else the kernels, their forward launches counted on
+    ``counter``."""
+    if feat.device.type == "cpu" and rois.device.type == "cpu":
+        return roi_pool_fc_plain(feat, rois, pooled_h, pooled_w,
+                                 spatial_scale, flavor, out_dtype)
+    _check_cuda(feat, rois, flavor, out_dtype)
+    return _RoiPoolFc.apply(feat, rois, pooled_h, pooled_w, spatial_scale,
+                            flavor, out_dtype, False, counter)
 
 
 def roi_pool_fc(feat: torch.Tensor, rois: torch.Tensor, pooled_h: int = 7,
@@ -242,12 +260,9 @@ def roi_pool_fc(feat: torch.Tensor, rois: torch.Tensor, pooled_h: int = 7,
     ones on ``roi_pool_fc_bf16.launches``, and by path (:func:`forward_plan`)
     on each wrapper's ``.paths``.
     """
-    if feat.device.type == "cpu" and rois.device.type == "cpu":
-        return roi_pool_fc_plain(feat, rois, pooled_h, pooled_w,
-                                 spatial_scale, flavor, out_dtype)
-    _check_cuda(feat, rois, flavor, out_dtype)
-    return _RoiPoolFc.apply(feat, rois, pooled_h, pooled_w, spatial_scale,
-                            flavor, out_dtype, False)
+    counter = roi_pool_fc_bf16 if out_dtype == torch.bfloat16 else roi_pool_fc
+    return _pool(feat, rois, pooled_h, pooled_w, spatial_scale, flavor,
+                 out_dtype, counter)
 
 
 roi_pool_fc.launches = 0
@@ -359,8 +374,34 @@ def roi_pool_grouped(feat: torch.Tensor, rois: torch.Tensor,
                      pooled_h: int = 7, pooled_w: int = 7,
                      spatial_scale: float = 1.0 / 16.0,
                      flavor: str = "gpu") -> torch.Tensor:
-    """[B, H, W, C] x [B, P, 4] -> [B, P, Ph, Pw, C]: :func:`roi_pool_fc`'s
-    output viewed 5-D (the same bytes; its launch counts there)."""
+    """Batched ROI max pooling with per-image ROI groups, the ResNet head's
+    pool (``roi_pool_image`` / ``roi_pool_grouped`` of the JAX package, its
+    Pallas ``_fwd_kernel`` and ``_bwd_kernel``): [B, H, W, C] x [B, P, 4]
+    -> [B, P, Ph, Pw, C] f32, differentiable with respect to ``feat``.
+
+    The forward kernel's output is contiguous NHWC, so this is the same
+    launch as :func:`roi_pool_fc`'s, viewed 5-D; its launches count on
+    ``roi_pool_grouped.launches`` / ``.paths`` (not on ``roi_pool_fc``'s),
+    the backward's on ``roi_pool_fc_backward.launches``.  CPU tensors take
+    :func:`roi_pool_grouped_plain`."""
     b, p, _ = rois.shape
-    return roi_pool_fc(feat, rois, pooled_h, pooled_w, spatial_scale,
-                       flavor).view(b, p, pooled_h, pooled_w, feat.shape[-1])
+    return _pool(feat, rois, pooled_h, pooled_w, spatial_scale, flavor,
+                 torch.float32, roi_pool_grouped).view(
+        b, p, pooled_h, pooled_w, feat.shape[-1])
+
+
+roi_pool_grouped.launches = 0
+roi_pool_grouped.paths = {"smem": 0, "direct": 0}
+
+
+def roi_pool_grouped_plain(feat: torch.Tensor, rois: torch.Tensor,
+                           pooled_h: int = 7, pooled_w: int = 7,
+                           spatial_scale: float = 1.0 / 16.0,
+                           flavor: str = "gpu") -> torch.Tensor:
+    """The plain version of :func:`roi_pool_grouped` on any device:
+    :func:`roi_pool_fc_plain` (plain forward, plain backward) viewed
+    5-D."""
+    b, p, _ = rois.shape
+    return roi_pool_fc_plain(feat, rois, pooled_h, pooled_w, spatial_scale,
+                             flavor).view(b, p, pooled_h, pooled_w,
+                                          feat.shape[-1])

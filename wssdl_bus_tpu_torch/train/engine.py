@@ -3,19 +3,26 @@
 
 ``Engine.inference_step`` is the test-graph forward of
 ``Engine._inference_impl`` (``wssdl_bus_tpu/train/engine.py:638-661``): the
-VGG16 trunk and RPN, ``rpn_softmax``, the proposal layer with TEST budgets
-(greedy NMS in the CUDA kernel ``csrc/nms.cu``), ROI max-pool written as the
-flat fc6 operand (``csrc/roi_pool.cu``), the fc head and a softmax.
+trunk and RPN, ``rpn_softmax``, the proposal layer with TEST budgets (greedy
+NMS in the CUDA kernel ``csrc/nms.cu``), ROI max-pool (``csrc/roi_pool.cu``:
+written as the flat fc6 operand for the VGG16 head, ``roi_pool_fc``; as
+[N, 7, 7, C] for the ResNet head, ``roi_pool_grouped``), the head and a
+softmax.
 
 ``Engine.train_step`` is the combined step (``_train_step_impl``, the
 reference's ``train_model``, train_bus.py:595-764): anchor targets for the
 supervised images, proposals with TRAIN budgets, ROI sampling, the pool and
 the head (with dropout) applied to the supervised ROIs and to the weak
-images' proposals separately, the four supervised losses, weight decay and
-the MIL bag loss, one backward and one optimizer update.  The pool's
-backward is a CUDA kernel (``wssdl_roi_pool_bwd``, ``ops/roi_pool_cuda.py``).
-``Engine.train_step_mil`` is the alternating regime's weak step
-(``_train_step_mil_impl``): the MIL loss alone over weak images.
+images' proposals separately (VGG16: its head is norm-free) or once on
+their concatenation (ResNet: the head's BatchRenorm takes its batch
+statistics over every ROI, ``wssdl_bus_tpu/train/engine.py:371-382``), the
+four supervised losses, weight decay and the MIL bag loss, one backward and
+one optimizer update; BatchRenorm's running statistics update in the
+forward.  The pool's backward is a CUDA kernel (``wssdl_roi_pool_bwd``,
+``ops/roi_pool_cuda.py``).  ``Engine.train_step_mil`` is the alternating
+regime's weak step (``_train_step_mil_impl``): the MIL loss alone over weak
+images, with batch-statistics normalisation and the running statistics left
+as they are (``models/layers.py:running_stats_frozen``).
 ``Engine.eval_step`` is the in-training evaluation forward (``eval_step``):
 TEST proposal budgets, every image supervised, no GT appended to the ROI
 candidates, the head in eval mode, and per-image losses.
@@ -41,6 +48,7 @@ from wssdl_bus_tpu_torch.config import Config
 from wssdl_bus_tpu_torch.mil import get_bag_logits
 from wssdl_bus_tpu_torch.models.detector import (FasterRCNN, rpn_softmax,
                                                  stem_is_frozen)
+from wssdl_bus_tpu_torch.models.layers import running_stats_frozen
 from wssdl_bus_tpu_torch.ops.anchor_target import anchor_target_layer_joint
 from wssdl_bus_tpu_torch.ops.anchors import shifted_anchors
 from wssdl_bus_tpu_torch.ops.device_prep import (net_divisor_for,
@@ -50,7 +58,10 @@ from wssdl_bus_tpu_torch.ops.nms_cuda import nms_keep
 from wssdl_bus_tpu_torch.ops.proposal import proposal_layer, proposals_to_rois
 from wssdl_bus_tpu_torch.ops.proposal_target import proposal_target_layer
 from wssdl_bus_tpu_torch.ops.roi_pool import rois_with_batch_index
-from wssdl_bus_tpu_torch.ops.roi_pool_cuda import roi_pool_fc, roi_pool_fc_plain
+from wssdl_bus_tpu_torch.ops.roi_pool_cuda import (roi_pool_fc,
+                                                   roi_pool_fc_plain,
+                                                   roi_pool_grouped,
+                                                   roi_pool_grouped_plain)
 from wssdl_bus_tpu_torch.train import losses as L
 from wssdl_bus_tpu_torch.utils import resolve_device
 
@@ -194,8 +205,9 @@ class Engine:
 
     ``device``: CUDA unless named (raises without a card).  ``plain_ops``
     swaps the kernels for their plain PyTorch versions
-    (``ops/nms.py:nms_mask``, ``ops/roi_pool_cuda.py:roi_pool_fc_plain``
-    with its plain backward, and for the opt-in stem paths
+    (``ops/nms.py:nms_mask``, ``ops/roi_pool_cuda.py:roi_pool_fc_plain`` /
+    ``roi_pool_grouped_plain`` with their plain backward, and for the
+    opt-in stem paths
     ``ops/conv1.py:vgg_stem_plain`` / ``ops/conv2_pool.py:
     vgg_conv2_pool_plain``) on whatever the device is: the yardstick
     ``chip_smoke.py`` holds the served and trained paths against.
@@ -211,8 +223,6 @@ class Engine:
                  num_supervised: int = None, num_ws: int = None,
                  dataset: str = "SNUBH", opt_name: str = "adam",
                  selector_pair=("mal_max", "mal_max"), seed: int = None):
-        if model.backbone != "VGGnet":
-            raise NotImplementedError("only the VGG16 detector is ported")
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self.cfg = cfg
@@ -224,7 +234,11 @@ class Engine:
                             cfg.ANCHOR_SCALES), device=self.device)
         self.plain_ops = plain_ops
         self._nms = nms_mask if plain_ops else nms_keep
-        self._pool = roi_pool_fc_plain if plain_ops else roi_pool_fc
+        if model.backbone == "VGGnet":
+            self._pool = roi_pool_fc_plain if plain_ops else roi_pool_fc
+        else:
+            self._pool = (roi_pool_grouped_plain if plain_ops
+                          else roi_pool_grouped)
 
         t = cfg.TRAIN
         self.n_s = t.IMS_PER_BATCH if num_supervised is None \
@@ -280,9 +294,10 @@ class Engine:
 
     def _pool_for_head(self, feat, boxes):
         """ROI-pool ``boxes`` [B, P, 4] against ``feat`` [B, h, w, C] into the
-        flat fc6 operand [B*P, 7*7*C]."""
-        flat = self._pool(feat, boxes, 7, 7, 1.0 / self.cfg.FEAT_STRIDE)
-        return flat.reshape(-1, flat.shape[-1])
+        head's operand: the flat fc6 operand [B*P, 7*7*C] (VGG16) or
+        [B*P, 7, 7, C] (ResNet)."""
+        out = self._pool(feat, boxes, 7, 7, 1.0 / self.cfg.FEAT_STRIDE)
+        return out.reshape((-1,) + tuple(out.shape[2:]))
 
     def _proposals(self, rpn_score, rpn_bbox, im_info, budgets):
         """Proposals from detached RPN outputs at TEST or TRAIN budgets."""
@@ -350,15 +365,30 @@ class Engine:
             props.boxes[:n_s], props.valid[:n_s], b["gt_boxes"][:n_s],
             b["num_gt_boxes"][:n_s], uniforms=draws.roi_u, generator=gen,
             include_gt=True, **self._pt_kwargs)
-        # the head runs on the two groups separately: it is norm-free, so
-        # this equals one call on their concatenation without building the
-        # [n_s*R + n_ws*P, 25088] operand
-        cls_sup, bbox_sup = self.model.apply_head(
-            self._pool_for_head(feat[:n_s], samples.rois), draws.keep_sup,
-            gen)
-
         a = self.num_anchors
         r = cfg.TRAIN.BATCH_SIZE
+        sup_pooled = self._pool_for_head(feat[:n_s], samples.rois)
+        ws_pooled = (self._pool_for_head(feat[n_s:], props.boxes[n_s:])
+                     if n_ws else None)
+        cls_ws = None
+        if self.model.backbone == "VGGnet":
+            # the head runs on the two groups separately: it is norm-free,
+            # so this equals one call on their concatenation without
+            # building the [n_s*R + n_ws*P, 25088] operand
+            cls_sup, bbox_sup = self.model.apply_head(
+                sup_pooled, draws.keep_sup, gen)
+            if n_ws:
+                cls_ws, _ = self.model.apply_head(ws_pooled, draws.keep_ws,
+                                                  gen)
+        else:
+            # one call on the concatenation: BatchRenorm's batch statistics
+            # cover every ROI of both groups, the weak group's invalid
+            # proposal slots included (its props.boxes hold them)
+            cls_all, bbox_all = self.model.apply_head(
+                sup_pooled if ws_pooled is None
+                else torch.cat([sup_pooled, ws_pooled]))
+            cls_sup, bbox_sup = cls_all[:n_s * r], bbox_all[:n_s * r]
+            cls_ws = cls_all[n_s * r:]
         labels = samples.labels.reshape(-1)
         rpn_cls = L.rpn_class_loss(rpn_score, at.labels, a)
         rpn_box = L.rpn_box_loss(rpn_bbox, at.bbox_targets,
@@ -370,9 +400,6 @@ class Engine:
             samples.inside_weights.reshape(n_s * r, -1),
             samples.outside_weights.reshape(n_s * r, -1), labels)
         if n_ws:
-            cls_ws, _ = self.model.apply_head(
-                self._pool_for_head(feat[n_s:], props.boxes[n_s:]),
-                draws.keep_ws, gen)
             mil = self._mil(cls_ws, props.valid[n_s:], b["im_info"][n_s:],
                             step)
         else:
@@ -401,16 +428,21 @@ class Engine:
                        draws: StepDraws = None) -> torch.Tensor:
         """One weakly-supervised update of the alternating regime: only the
         MIL bag loss over ``batch``'s images, all weak
-        (train_bus.py:298-301,368-394).  -> the MIL loss."""
+        (train_bus.py:298-301,368-394).  BatchRenorm normalises with the
+        batch's statistics and leaves its running statistics unchanged, as
+        the JAX package discards them here.  -> the MIL loss."""
         cfg = self.cfg
         draws = draws or StepDraws()
         b = _batch_tensors(batch, self.device)
         self.model.train()
-        feat, rpn_score, rpn_bbox = self._train_trunk(self._batch_data(b))
-        props = self._proposals(rpn_score, rpn_bbox, b["im_info"], cfg.TRAIN)
-        cls_ws, _ = self.model.apply_head(
-            self._pool_for_head(feat, props.boxes), draws.keep_ws,
-            self.generator)
+        with running_stats_frozen(self.model):
+            feat, rpn_score, rpn_bbox = self._train_trunk(
+                self._batch_data(b))
+            props = self._proposals(rpn_score, rpn_bbox, b["im_info"],
+                                    cfg.TRAIN)
+            cls_ws, _ = self.model.apply_head(
+                self._pool_for_head(feat, props.boxes), draws.keep_ws,
+                self.generator)
         mil = self._mil(cls_ws, props.valid, b["im_info"], step)
         self.opt.zero_grad()
         mil.backward()
