@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's serving and training paths on one NVIDIA GPU:
-VGG16 (phases 3-12) and the ResNet detectors (phase 13).
+VGG16 (phases 3-12), the ResNet detectors (phase 13), bf16 compute and int8
+serving (phase 14).
 
     python3 chip_smoke.py [--profile]
 
@@ -134,13 +135,33 @@ directory without the port beside it, phase 0 fails so):
      its bound) and its ``--resume`` from 2 (parameters, running
      statistics, moments and test losses equal bit for bit), and
      ``main.test --network Resnet_test`` on the snapshot at batch 8; logs in ``chiprun_out/resnet_*.log``;
+ 14. (after phase 13) bf16 and int8, VGG16 and ResNet-18 BN (int8 also
+     ResNet-50 BN) at the served
+     canvas: the int8 conv kernel (``csrc/int8_conv.cu``) against its
+     plain version, bit for bit, at every layer shape of each model's
+     batch-8 int8 step (the inputs recorded from that step), timed beside
+     its bound (int8 operations at 1,979 TOP/s or bytes), cuDNN's bf16 conv
+     of the same layer and, for a 1x1 layer, ``torch._int_mm`` on its
+     operand (library yardsticks the port never calls); int8 serving
+     through ``Engine.quantize_for_serving`` (calibrated on the requests'
+     batch-8 blob) and ``QuantServingEngine`` (3 requests at batch 1, 8 at
+     batch 8: per device step one NMS, one pool forward and one int8 conv
+     per quantized layer), ms/image by stage and peak memory, all five
+     outputs through the kernels equal to ``plain_ops=True``, the keep sets
+     against the f32 step's (a diagnostic); ``--bf16`` serving and one
+     bf16 combined step (outputs f32, no bf16 pool launch, f32
+     parameters) timed beside f32; ``main.test --int8`` and ``--bf16`` at
+     batch 8 over the evaluation imdb and ``main.train --bf16`` for 3
+     iterations (logs ``chiprun_out/precision_*.log``);
  12. a ``{"kernels": [...]}`` line (#3 as ``roi_pool_grouped``, its
-     launches from the ResNet paths), then the last line
+     launches from the ResNet paths; the int8 conv as ``int8_conv``, its
+     numbers those of the VGG16 batch-8 int8 step), then the last line
      ``{"ok": true, "device": {...}}``.
 
 ``--profile`` adds torch.profiler breakdowns (device time by kernel, busy
 share) of the batch-8 serving step and of the combined training step, for
-VGG16 and for ResNet-18 BN, and their Chrome traces in chiprun_out/.
+VGG16 and for ResNet-18 BN, of the int8 batch-8 serving steps, and their
+Chrome traces in chiprun_out/.
 
 Needs one CUDA card; imports nothing of JAX or of the JAX package.
 """
@@ -223,14 +244,15 @@ def make_requests(seed: int, n: int):
     return [speckle_image(rng, *sizes[i % 2]) for i in range(n)]
 
 
-def build_model(device, seed: int):
-    """VGG16 with He weights from ``seed``; the requests arrive in pixel
-    units (std ~50), hence ``input_scale`` (models/convert.py:he_tree)."""
+def build_model(device, seed: int, name: str = "VGGnet_test", dtype=None):
+    """VGG16 (``name``) with He weights from ``seed`` and the compute dtype
+    ``dtype``; the requests arrive in pixel units (std ~50), hence
+    ``input_scale`` (models/convert.py:he_tree)."""
     from wssdl_bus_tpu_torch.models.convert import he_init_
     from wssdl_bus_tpu_torch.models.detector import build_detector
 
-    return he_init_(build_detector("VGGnet_test", device=device), seed,
-                    input_scale=64.0)
+    return he_init_(build_detector(name, device=device, compute_dtype=dtype),
+                    seed, input_scale=64.0)
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -1256,6 +1278,7 @@ def kernel_wrappers() -> dict:
     """Every kernel wrapper of the port by name; each counts its launches."""
     from wssdl_bus_tpu_torch.ops.conv1_cuda import vgg_stem_fused
     from wssdl_bus_tpu_torch.ops.conv2_pool_cuda import vgg_conv2_pool
+    from wssdl_bus_tpu_torch.ops.int8_conv_cuda import int8_conv
     from wssdl_bus_tpu_torch.ops.nms_cuda import nms_keep
     from wssdl_bus_tpu_torch.ops.roi_pool_cuda import (
         roi_pool_fc, roi_pool_fc_backward, roi_pool_fc_backward_bf16,
@@ -1264,7 +1287,7 @@ def kernel_wrappers() -> dict:
     return {f.__name__: f for f in (
         nms_keep, roi_pool_fc, roi_pool_grouped, roi_pool_fc_backward,
         roi_pool_fc_bf16, roi_pool_fc_backward_bf16, vgg_stem_fused,
-        vgg_conv2_pool)}
+        vgg_conv2_pool, int8_conv)}
 
 
 def reset_counts():
@@ -2241,7 +2264,7 @@ RESNET_NET = {"test": "Resnet_test", "train": "Resnet_train"}
 RESNET_CLI_ITERS = 3      # snapshots at 2 and 3, one evaluation at 3
 
 
-def resnet_model(name: str, depth: int, norm, seed: int = 0):
+def resnet_model(name: str, depth: int, norm, seed: int = 0, dtype=None):
     """A ResNet detector on the card with seeded He weights (``input_scale``
     1: the ResNet blob is already unit scale) and the RPN's 1x1 kernels x
     0.03, so that the decoded proposals stay near their anchors and the
@@ -2251,7 +2274,8 @@ def resnet_model(name: str, depth: int, norm, seed: int = 0):
                                                     params_to_jax)
     from wssdl_bus_tpu_torch.models.detector import build_detector
 
-    model = build_detector(name, device="cuda", depth=depth, norm=norm)
+    model = build_detector(name, device="cuda", depth=depth, norm=norm,
+                           compute_dtype=dtype)
     tree = he_tree(params_to_jax(model.state_dict()), seed)
     for k in ("rpn_cls_score", "rpn_bbox_pred"):
         tree["trunk"]["params"][k]["conv"]["kernel"] *= 0.03
@@ -2714,6 +2738,397 @@ def run_resnet(st, kern, eval_data, requests, out_dir, smi,
     return out
 
 
+# --------------------------------------------------------------------- #
+# phase 14: bf16 compute and int8 serving
+# --------------------------------------------------------------------- #
+INT8_OPS_PER_S = 1979e12    # dense int8 on the tensor cores (data sheet)
+
+
+@contextlib.contextmanager
+def recorded_int8_convs():
+    """Within the block the int8 walks (``models/quantize.py``) call the
+    kernel's wrapper through a recorder: -> {(B, H, W, Cin, Cout, k,
+    stride): {"args": the first call's arguments, "calls": n}}."""
+    from wssdl_bus_tpu_torch.models import quantize as Q
+    from wssdl_bus_tpu_torch.ops.int8_conv_cuda import int8_conv
+
+    seen = {}
+
+    def rec(xq, packed, kh, kw, scale, bias, stride=1, relu=False):
+        args = (xq, packed, kh, kw, scale, bias, stride, relu)
+        key = (*xq.shape, int(packed.shape[0]), kh, stride)
+        seen.setdefault(key, {"args": args, "calls": 0})["calls"] += 1
+        return int8_conv(*args)
+
+    real = Q._int8_conv_fn
+    Q._int8_conv_fn = lambda plain: rec
+    try:
+        yield seen
+    finally:
+        Q._int8_conv_fn = real
+
+
+def int8_conv_stats(args) -> dict:
+    """The int8 conv kernel against its plain version at one layer's real
+    inputs (bit for bit), CUDA-event times, the bound, and two library
+    yardsticks the port never calls: cuDNN's bf16 conv of the same layer,
+    and for a 1x1 layer ``torch._int_mm`` on its (strided) operand, whose
+    int32 product is checked equal to the plain accumulator."""
+    import torch
+    import torch.nn.functional as F
+
+    from wssdl_bus_tpu_torch.ops.int8_conv import (conv_pads,
+                                                   int8_conv_acc_plain,
+                                                   int8_conv_plain,
+                                                   unpack_weight)
+    from wssdl_bus_tpu_torch.ops.int8_conv_cuda import int8_conv
+
+    xq, packed, kh, kw, scale, bias, stride, relu = args
+    b, h, w, cin = xq.shape
+    cout = int(packed.shape[0])
+    got = int8_conv(*args)
+    want = int8_conv_plain(*args)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    shape = f"{tuple(xq.shape)} {kh}x{kw}/{stride} -> {tuple(got.shape)}"
+    _check(torch.equal(got, want), f"int8_conv {shape}: differs from its "
+           f"plain version (max |diff| {err})")
+    ms = cuda_ms(lambda: int8_conv(*args), iters=10)
+    plain_ms = cuda_ms(lambda: int8_conv_plain(*args), iters=1, warmup=1)
+    (pt, pb), (pl, pr), (ho, wo) = conv_pads(h, w, kh, kw, stride)
+    macs = b * ho * wo * cout * kh * kw * cin
+    nbytes = xq.numel() + packed.numel() + 8 * cout + got.numel() * 4
+    t_ops = 2 * macs / INT8_OPS_PER_S * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    wt = unpack_weight(packed, kh, kw, cin)
+    xb = F.pad(xq.permute(0, 3, 1, 2).to(torch.bfloat16),
+               (pl, pr, pt, pb)).contiguous(memory_format=torch.channels_last)
+    wb = wt.permute(3, 2, 0, 1).to(torch.bfloat16).contiguous(
+        memory_format=torch.channels_last)
+    cudnn_ms = cuda_ms(lambda: F.conv2d(xb, wb, None, stride), iters=10)
+    del xb, wb
+    int_mm_ms = None
+    if kh == 1 and b * ho * wo > 16 and cin % 8 == 0 and cout % 8 == 0:
+        a = xq[:, ::stride, ::stride].reshape(-1, cin).contiguous()
+        m = wt.reshape(cin, cout).t().contiguous().t()    # column-major
+        acc = torch._int_mm(a, m)
+        _check(torch.equal(acc.reshape(b, ho, wo, cout),
+                           int8_conv_acc_plain(xq, packed, kh, kw, stride)),
+               f"torch._int_mm {shape}: not the plain accumulator")
+        int_mm_ms = cuda_ms(lambda: torch._int_mm(a, m), iters=10)
+        del a, m, acc
+    del got, want
+    return {"shape": shape, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "ops_ms": t_ops, "bytes_ms": t_bytes,
+            "library_ms": cudnn_ms, "library": "cudnn bf16 conv",
+            "int_mm_ms": int_mm_ms, "macs": macs}
+
+
+def keep_set_agreement(out_q, out_f, batch: int) -> dict:
+    """Diagnostic, no threshold: per image, whether the int8 step's kept
+    proposals (boxes to 1/16 px) are the f32 step's, and the share of int8
+    kept proposals found in the f32 keep set."""
+    def kept(outs):
+        rois = outs[0].reshape(batch, -1, 5)[..., 1:].cpu().numpy()
+        valid = outs[1].reshape(batch, -1).cpu().numpy()
+        return [{tuple(np.round(r * 16).astype(int)) for r in rois[i][
+            valid[i]]} for i in range(batch)]
+
+    q, f = kept(out_q), kept(out_f)
+    same = sum(a == b for a, b in zip(q, f))
+    shared = sum(len(a & b) for a, b in zip(q, f))
+    total = sum(len(a) for a in q)
+    return {"images_same_keep_set": same, "images": batch,
+            "kept_in_f32_keep_set": shared / max(total, 1)}
+
+
+def int8_serve(tag, model, cfg, canvas, net, requests, smi, out_dir,
+               profile: bool = False) -> dict:
+    """Int8 serving at full width: ``Engine.quantize_for_serving``
+    calibrated on the requests' batch-8 blob, then ``QuantServingEngine``
+    through ``im_detect_batch`` + ``report_detections`` (BATCH_1_REQUESTS
+    at batch 1 and one batch of 8) with the counters around it (one NMS,
+    one pool forward and one int8 conv per quantized layer a device step);
+    every layer shape of the batch-8 step held against the plain int8 conv;
+    ms/image and peak memory; the served batch through the kernels equal
+    to ``plain_ops=True`` (TF32 off since phase 6); the keep sets against
+    the f32 step's."""
+    import torch
+
+    from wssdl_bus_tpu_torch.models.quantize import QuantServingEngine
+    from wssdl_bus_tpu_torch.train.engine import Engine
+
+    eng = Engine(model, cfg, canvas)
+    blob, infos = _packed(eng, requests, net)
+    t0 = time.perf_counter()
+    q = eng.quantize_for_serving([blob])
+    torch.cuda.synchronize()
+    calib_s = time.perf_counter() - t0
+    n_convs = (len(q["layers"]) if model.backbone == "VGGnet"
+               else len(q["trunk"]["layers"]) + len(q["head"]["layers"]))
+    pool = "roi_pool_fc" if model.backbone == "VGGnet" else "roi_pool_grouped"
+    qeng = QuantServingEngine(eng, q)
+    with recorded_int8_convs() as seen:
+        qeng.inference_step(blob, infos)
+    torch.cuda.synchronize()
+    reset_counts()
+    out = serve(qeng, requests[:BATCH_1_REQUESTS], net, 1) \
+        + serve(qeng, requests, net, BATCH)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    steps = BATCH_1_REQUESTS + 1
+    check_counts(counts, {"nms_keep": steps, pool: steps,
+                          "int8_conv": steps * n_convs},
+                 f"{tag} int8 serving")
+    paths = check_pool_paths(counts, f"serve_{tag}_int8")
+    for scores, boxes, _ in out:
+        _check(scores.ndim == 2 and scores.shape[1] == 3
+               and boxes.shape == (scores.shape[0], 12)
+               and np.isfinite(scores).all() and np.isfinite(boxes).all(),
+               f"{tag} int8 serving: outputs {scores.shape} {boxes.shape}")
+    shapes = {}
+    for key, entry in seen.items():
+        st = int8_conv_stats(entry["args"])
+        st["calls_per_step"] = entry["calls"]
+        shapes["x".join(map(str, key))] = st
+        print(f"[int8] {tag} {st['shape']} x{entry['calls']}: kernel "
+              f"{st['ms']:.4f} ms (bound {st['bound_ms']:.4f} by "
+              f"{st['bound_by']}, {st['bound_ms'] / st['ms']:.2f} of it), "
+              f"plain {st['plain_ms']:.3f}, cuDNN bf16 conv "
+              f"{st['library_ms']:.4f}"
+              + ("" if st["int_mm_ms"] is None
+                 else f", torch._int_mm {st['int_mm_ms']:.4f}")
+              + "; equal bit for bit", flush=True)
+    _check(sum(e["calls"] for e in seen.values()) == n_convs,
+           f"{tag}: the recorded step made "
+           f"{sum(e['calls'] for e in seen.values())} int8 convs, not "
+           f"{n_convs}")
+    step = {k: sum(st[k] * st["calls_per_step"] for st in shapes.values())
+            for k in ("ms", "plain_ms", "bound_ms", "library_ms", "macs")}
+    by_ops = sum(st["bound_ms"] * st["calls_per_step"]
+                 for st in shapes.values() if st["bound_by"] == "operations")
+    step["bound_by"] = ("operations" if 2 * by_ops >= step["bound_ms"]
+                        else "bytes")
+    with pytorch_defaults():
+        perf = {b: time_serving(qeng, requests, net, b) for b in (1, BATCH)}
+        if profile:
+            profile_step(qeng, requests, net, out_dir, f"_{tag}_int8")
+    eng_plain = Engine(model, cfg, canvas, plain_ops=True)
+    outs_k = eng.inference_step_quant(q, blob, infos)
+    outs_p = eng_plain.inference_step_quant(q, blob, infos)
+    for name, a, b in zip(("rois", "valid", "cls_score", "cls_prob",
+                           "bbox_pred"), outs_k, outs_p):
+        _check(torch.equal(a, b), f"{tag} int8 parity: {name} through the "
+               "kernels differs from plain_ops=True")
+    agree = keep_set_agreement(outs_k, eng.inference_step(blob, infos),
+                               BATCH)
+    for b in (1, BATCH):
+        t = perf[b]
+        print(f"[int8-perf] {tag} batch {b}: {t['ms_per_image']:.3f} "
+              f"ms/image end to end = host prep {t['prep_ms_per_image']:.3f}"
+              f" + device step {t['device_step_ms_per_image']:.3f} + decode"
+              f"/report {t['decode_report_ms_per_image']:.3f}; peak "
+              f"{t['peak_bytes'] / 2**20:.1f} MiB allocated; {smi}",
+              flush=True)
+    print(f"[int8] {tag}: calibrated and quantized in {calib_s:.2f} s; "
+          f"{len(out)} requests served, launches {counts} ({n_convs} int8 "
+          f"convs a step); {pool} by path {paths[pool]}; the batch-8 step's "
+          f"{n_convs} convs: kernel {step['ms']:.3f} ms, bound "
+          f"{step['bound_ms']:.3f} ms ({step['macs'] / 1e12:.3f} TMAC), "
+          f"plain {step['plain_ms']:.1f} ms, cuDNN bf16 convs "
+          f"{step['library_ms']:.3f} ms; through the kernels == plain_ops="
+          f"True (all five outputs, TF32 off); keep sets vs f32: {agree}",
+          flush=True)
+    return {"launches": counts, "perf": perf, "per_shape": shapes,
+            "step": step, "keep_sets_vs_f32": agree, "calib_s": calib_s}
+
+
+def bf16_paths(tag, make, cfg, canvas, tcanvas, joint, requests, net,
+               smi) -> dict:
+    """``--bf16`` serving (one batch of 8) and one combined training step
+    against the f32 ones: boundary outputs f32, launches as f32 with no
+    launch of the bf16 pool store (#2's bf16 instance, #5), finite losses,
+    f32 parameters; step times at PyTorch's defaults."""
+    import torch
+
+    from wssdl_bus_tpu_torch.train.engine import Engine
+
+    pool = "roi_pool_fc" if net.startswith("VGG") else "roi_pool_grouped"
+    e32 = Engine(make(None, False), cfg, canvas)
+    e16 = Engine(make(torch.bfloat16, False), cfg, canvas)
+    blob, infos = _packed(e16, requests, net)
+    reset_counts()
+    outs = e16.inference_step(blob, infos)
+    served = serve(e16, requests, net, BATCH)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    check_counts(counts, {"nms_keep": 2, pool: 2}, f"{tag} bf16 serving")
+    _check(all(o.dtype == torch.float32 for i, o in enumerate(outs)
+               if i != 1), f"{tag} bf16 serving: outputs "
+           f"{[o.dtype for o in outs]}, want f32 at the boundary")
+    _check(all(np.isfinite(sc).all() for sc, _, _ in served),
+           f"{tag} bf16 serving: non-finite scores")
+    agree = keep_set_agreement(outs, e32.inference_step(blob, infos), BATCH)
+    with pytorch_defaults():
+        perf = {dt: time_serving(e, requests, net, BATCH)
+                for dt, e in (("bf16", e16), ("f32", e32))}
+    del e32, e16
+    t32 = Engine(make(None, True), cfg, tcanvas)
+    t16 = Engine(make(torch.bfloat16, True), cfg, tcanvas)
+    reset_counts()
+    ls = t16.train_step(joint[0], step=TRAIN_STEP)
+    torch.cuda.synchronize()
+    counts_t = read_counts()
+    check_counts(counts_t, {"nms_keep": 1, pool: 2,
+                            "roi_pool_fc_backward": 2}, f"{tag} bf16 step")
+    losses = [float(x) for x in ls]
+    _check(np.isfinite(losses).all(), f"{tag} bf16 step: losses {losses}")
+    _check(all(v.dtype == torch.float32
+               for v in t16.model.state_dict().values()),
+           f"{tag} bf16 step: a parameter left f32")
+    with pytorch_defaults():
+        step_ms = {"bf16": time_train_step(t16, joint[-1]),
+                   "f32": time_train_step(t32, joint[-1])}
+    print(f"[bf16] {tag}: serving batch {BATCH} launches {counts} (no bf16 "
+          f"pool store), outputs f32, keep sets vs f32 {agree}; device step "
+          f"{perf['bf16']['device_step_ms_per_image']:.3f} ms/image (f32 "
+          f"{perf['f32']['device_step_ms_per_image']:.3f}), end to end "
+          f"{perf['bf16']['ms_per_image']:.3f} (f32 "
+          f"{perf['f32']['ms_per_image']:.3f}), peak "
+          f"{perf['bf16']['peak_bytes'] / 2**20:.1f} MiB (f32 "
+          f"{perf['f32']['peak_bytes'] / 2**20:.1f}); one combined step: "
+          f"launches {counts_t}, losses {np.round(losses, 4).tolist()}, "
+          f"parameters f32; {step_ms['bf16']:.3f} ms by CUDA events (f32 "
+          f"{step_ms['f32']:.3f}, PyTorch's defaults); {smi}", flush=True)
+    return {"launches": {"serve": counts, "train": counts_t},
+            "perf": perf, "step_ms": step_ms, "losses": losses,
+            "keep_sets_vs_f32": agree}
+
+
+def precision_cli(tmpdir, ev, out_dir, smi) -> dict:
+    """``main.test --int8`` and ``main.test --bf16`` over the evaluation
+    imdb at batch 8 from phase 10's snapshot (per device step one NMS and
+    one pool forward, f32, and for int8 its 13 convs), and ``main.train
+    --bf16`` for 3 iterations from the He ``.npy`` (1 + 2 + 2 launches an
+    iteration, no evaluation)."""
+    import torch
+
+    from wssdl_bus_tpu_torch.main import test as main_test
+    from wssdl_bus_tpu_torch.main import train as main_train
+
+    out = {"launches": {}}
+    steps = -(-EVAL_IMAGES // BATCH)
+    for tag in ("int8", "bf16"):
+        dst = os.path.join(tmpdir, f"precision_{tag}")
+        timings = {}
+        reset_counts()
+        with open(os.path.join(out_dir, f"precision_test_{tag}.log"),
+                  "w") as f, contextlib.redirect_stdout(f):
+            all_boxes, result = main_test.main(
+                ["--model", ev["snapshot"], "--imdb_test", "bus_test",
+                 "--data_dir", ev["data"], "--network", "VGGnet_test",
+                 "--output_dir", dst, "--batch_size", str(BATCH),
+                 f"--{tag}"], timings=timings)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        check_counts(counts, {"nms_keep": steps, "roi_pool_fc": steps,
+                              "int8_conv": 13 * steps if tag == "int8"
+                              else 0}, f"main.test --{tag}")
+        check_pool_paths(counts, f"precision_test_{tag}")
+        _check({"detections.pkl", "eval.txt"} <= set(os.listdir(dst)),
+               f"main.test --{tag} wrote no detections / eval.txt")
+        n_dets = sum(len(all_boxes[j][i]) for j in (1, 2)
+                     for i in range(EVAL_IMAGES))
+        ms = timings["wall_s"] * 1e3 / EVAL_IMAGES
+        out["launches"][f"test_{tag}"] = counts
+        out[f"test_{tag}"] = {"ms_per_image": ms, "detections": n_dets,
+                              "result": [float(x) for x in result],
+                              "device_step_ms_per_image":
+                                  timings["device_ms"] / EVAL_IMAGES}
+        print(f"[precision-cli] main.test --{tag} batch {BATCH}: launches "
+              f"{counts}; {n_dets} detections; CorLoc "
+              f"{out[f'test_{tag}']['result']}; {ms:.3f} ms/image (device "
+              f"step {timings['device_ms'] / EVAL_IMAGES:.3f}); {smi}",
+              flush=True)
+    npy = os.path.join(tmpdir, "vgg16_he.npy")
+    if not os.path.exists(npy):
+        write_he_npy(npy)
+    dst = os.path.join(tmpdir, "precision_train")
+    solver, counts = train_cli(main_train.main, [
+        "--data_dir", ev["data"], "--output_dir", dst, "--max_iters", "3",
+        "--pretrained_model", npy, "--bf16", "--no_prefetch", "--set_cfgs",
+        "TRAIN.DISPLAY", "1", "TRAIN.SNAPSHOT_ITERS", "3",
+        "TRAIN.TEST_ITERS", "100"],
+        os.path.join(out_dir, "precision_train_bf16.log"))
+    check_counts(counts, {"nms_keep": 3, "roi_pool_fc": 6,
+                          "roi_pool_fc_backward": 6}, "main.train --bf16")
+    _check(solver.eng.model.compute_dtype == torch.bfloat16,
+           "main.train --bf16 built an f32 model")
+    losses = np.asarray(solver.stats["train"]["losses"])
+    _check(losses.shape == (3, 6) and np.isfinite(losses).all(),
+           f"main.train --bf16 losses {losses}")
+    _check(CLI_SNAPSHOT.format(3) in os.listdir(dst),
+           "main.train --bf16 wrote no snapshot")
+    out["launches"]["train_bf16"] = counts
+    out["train_bf16"] = cli_rates(solver)
+    print(f"[precision-cli] main.train --bf16: 3 iterations, launches "
+          f"{counts}, losses finite, snapshot at 3; "
+          f"{out['train_bf16']}; {smi}", flush=True)
+    shutil.rmtree(dst)
+    return out
+
+
+def run_precision(st, ev, tmpdir, requests, tcanvas, joint, out_dir,
+                  smi, profile: bool = False) -> dict:
+    """Phase 14 (after phase 13; TF32 off but where timed); with
+    ``profile`` the torch.profiler breakdowns of the int8 batch-8 serving
+    steps."""
+    import torch
+
+    from wssdl_bus_tpu_torch.config import Config
+
+    t0 = time.perf_counter()
+    cfg = Config()
+    canvas = st["canvas"]
+    out = {"launches": {}}
+    int8 = {}
+    int8["vgg16"] = int8_serve("vgg16", build_model("cuda", 0), cfg, canvas,
+                               "VGGnet_test", requests, smi, out_dir,
+                               profile)
+    torch.cuda.empty_cache()
+    for tag, depth in (("resnet18_bn", 18), ("resnet50_bn", 50)):
+        int8[tag] = int8_serve(tag, resnet_model(RESNET_NET["test"], depth,
+                                                 "BN"), cfg, canvas,
+                               RESNET_NET["test"], requests, smi, out_dir,
+                               profile)
+        torch.cuda.empty_cache()
+    for tag, r in int8.items():
+        out["launches"][f"serve_{tag}_int8"] = r.pop("launches")
+    bf16 = {
+        "vgg16": bf16_paths(
+            "vgg16", lambda dt, train: build_model(
+                "cuda", 0, "VGGnet_train" if train else "VGGnet_test", dt),
+            cfg, canvas, tcanvas, joint, requests, "VGGnet_test", smi),
+        "resnet18_bn": bf16_paths(
+            "resnet18_bn", lambda dt, train: resnet_model(
+                RESNET_NET["train" if train else "test"], 18, "BN",
+                dtype=dt),
+            cfg, canvas, st["tcanvas"], st["joint"], requests,
+            RESNET_NET["test"], smi)}
+    for tag, r in bf16.items():
+        for k, c in r.pop("launches").items():
+            out["launches"][f"{k}_{tag}_bf16"] = c
+    torch.cuda.empty_cache()
+    cli = precision_cli(tmpdir, ev, out_dir, smi)
+    out["launches"].update(cli.pop("launches"))
+    print(f"[precision] phase 14: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    out.update(int8=int8, bf16=bf16, cli=cli)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2969,6 +3384,11 @@ def main() -> int:
     phase("13 (ResNet)")
     resnet = run_resnet(rst, resnet_kern, evaluation["data"], requests,
                         out_dir, smi, profile)
+
+    # phase 14: bf16 compute and int8 serving (TF32 off but where timed)
+    phase("14 (bf16 and int8)")
+    precision = run_precision(rst, evaluation, tmp.name, requests, tcanvas,
+                              joint, out_dir, smi, profile)
     tmp.cleanup()
 
     paths = {"serve": serve_launches, "train": train_launches,
@@ -2980,6 +3400,7 @@ def main() -> int:
         paths[f"train_{STEM_PATHS[name]}"] = run["train_launches"]
     paths.update(training_cli.pop("launches"))
     paths.update(resnet.pop("launches"))
+    paths.update(precision.pop("launches"))
 
     def launches(name):
         by_path = {p: c[name] for p, c in paths.items()}
@@ -2999,6 +3420,25 @@ def main() -> int:
                     library_ms=sv["library_ms"],
                     max_abs_err_train=tr["max_abs_err"],
                     per_shape={"serve": sv, "train": tr})
+
+    def int8_entry(int8):
+        """The int8 conv (no TPU kernel: XLA's s8 x s8 -> s32 conv in the
+        JAX package): its numbers are those of the VGG16 batch-8 int8 step,
+        summed over its 13 layers; every layer shape in per_shape."""
+        vgg = int8["vgg16"]["step"]
+        errs = [st["max_abs_err"] for r in int8.values()
+                for st in r["per_shape"].values()]
+        return dict(name="int8_conv", route="cuda",
+                    source="wssdl_bus_tpu_torch/csrc/int8_conv.cu",
+                    replaces="wssdl_bus_tpu/models/quantize.py:127",
+                    **launches("int8_conv"), max_abs_err=max(errs),
+                    ms=vgg["ms"], plain_ms=vgg["plain_ms"],
+                    bound_ms=vgg["bound_ms"], bound_by=vgg["bound_by"],
+                    library_ms=vgg["library_ms"],
+                    library="cudnn bf16 convs of the same layers",
+                    per_shape={t: {"step": r["step"],
+                                   "layers": r["per_shape"]}
+                               for t, r in int8.items()})
 
     r_fwd = {m: k["forward"] for m, k in resnet["kernels"].items()}
     r_bwd = {m: k["backward"] for m, k in resnet["kernels"].items()}
@@ -3052,6 +3492,7 @@ def main() -> int:
                    "wssdl_bus_tpu/ops/conv1_pallas.py:141"),
         stem_entry("vgg_conv2_pool", "wssdl_bus_tpu_torch/csrc/conv2_pool.cu",
                    "wssdl_bus_tpu/ops/conv2_pool_pallas.py:196"),
+        int8_entry(precision["int8"]),
     ]
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"serving": {str(b): v for b, v in perf.items()},
@@ -3077,6 +3518,12 @@ def main() -> int:
                       "training_entry_points": training_cli,
                       "resnet": {k: resnet[k] for k in (
                           "serve", "train", "parity", "cli")},
+                      "precision": {
+                          "int8": {t: {k: v for k, v in r.items()
+                                       if k != "per_shape"}
+                                   for t, r in precision["int8"].items()},
+                          "bf16": precision["bf16"],
+                          "cli": precision["cli"]},
                       "stem_paths": {STEM_PATHS[n]: {
                           k: v for k, v in r.items() if k in (
                               "serving", "training")}

@@ -59,6 +59,51 @@ def test_serving_loads_no_jax_module():
     assert [m for m in res["modules"] if _forbidden(m)] == []
 
 
+_INT8_ON_CPU = """
+import json, sys
+import numpy as np
+import torch
+torch.set_num_threads(2)
+from wssdl_bus_tpu_torch.config import Config
+from wssdl_bus_tpu_torch.evaluate.detect import (im_detect_batch,
+                                                 pack_image_batch)
+from wssdl_bus_tpu_torch.models.convert import he_init_
+from wssdl_bus_tpu_torch.models.detector import build_detector
+from wssdl_bus_tpu_torch.models.quantize import QuantServingEngine
+from wssdl_bus_tpu_torch.train.engine import Engine
+cfg = Config().with_overrides(["TEST.SCALES", "(64,)", "TEST.MAX_SIZE", "96",
+                               "TEST.RPN_PRE_NMS_TOP_N", "50",
+                               "TEST.RPN_POST_NMS_TOP_N", "10"])
+n = 0
+for name, kw, scale in (("VGGnet_test", {}, 64.0),
+                        ("Resnet_test", {"depth": 18, "norm": "BN"}, 1.0)):
+    model = he_init_(build_detector(name, device="cpu", **kw), 0, scale)
+    eng = Engine(model, cfg, (64, 96), device="cpu")
+    im = np.random.RandomState(0).randint(0, 255, (40, 60)).astype(np.uint8)
+    blob, _, _ = pack_image_batch(eng, [im], name, (64, 96))
+    qeng = QuantServingEngine(eng, eng.quantize_for_serving([blob]))
+    (scores, boxes), = im_detect_batch(qeng, [im], name, (64, 96))
+    n += len(scores)
+print(json.dumps({"modules": sorted(sys.modules), "n": n}))
+"""
+
+
+def test_int8_serving_loads_no_jax_module():
+    """Int8 calibration, quantization and a served request, VGG16 and
+    ResNet-18 BN, on the CPU in a fresh process."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", _INT8_ON_CPU], cwd=REPO,
+                         env=env, capture_output=True, text=True,
+                         timeout=300, check=True)
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res["n"] > 0
+    for m in ("wssdl_bus_tpu_torch.models.quantize",
+              "wssdl_bus_tpu_torch.ops.int8_conv",
+              "wssdl_bus_tpu_torch.ops.int8_conv_cuda"):
+        assert m in res["modules"]
+    assert [m for m in res["modules"] if _forbidden(m)] == []
+
+
 _TRAIN_ON_CPU = """
 import json, sys, tempfile, os
 import numpy as np

@@ -16,6 +16,8 @@ from wssdl_bus_tpu_torch.ops.conv1 import vgg_stem_plain
 from wssdl_bus_tpu_torch.ops.conv1_cuda import vgg_stem_fused
 from wssdl_bus_tpu_torch.ops.conv2_pool import vgg_conv2_pool_plain
 from wssdl_bus_tpu_torch.ops.conv2_pool_cuda import vgg_conv2_pool
+from wssdl_bus_tpu_torch.ops.int8_conv import int8_conv_plain, pack_weight
+from wssdl_bus_tpu_torch.ops.int8_conv_cuda import int8_conv
 from wssdl_bus_tpu_torch.ops.nms import nms_mask
 from wssdl_bus_tpu_torch.ops.nms_cuda import nms_keep
 from wssdl_bus_tpu_torch.ops.roi_pool import roi_pool_grad, roi_pool_grad_bf16
@@ -673,3 +675,41 @@ def test_native_host_library_loads(cuda):
     assert native.available()
     dets = np.array([[0, 0, 10, 10, 0.9], [1, 1, 10, 10, 0.8]], np.float32)
     assert native.nms(dets, 0.5) == [0]
+
+
+@pytest.mark.parametrize("k,stride,cin,cout,h,w", [
+    (3, 1, 64, 64, 19, 23),     # VGG16 3x3 SAME, a ragged M tile
+    (3, 1, 3, 64, 16, 20),      # conv1_1: Cin = 3, K = 27 (byte gather)
+    (7, 2, 3, 64, 24, 32),      # conv0: pads 2 / 3
+    (7, 2, 3, 64, 23, 31),      # conv0, odd sides: pads 3 / 3
+    (3, 2, 64, 128, 12, 14),    # 3x3/2, pads 0 / 1
+    (3, 2, 128, 256, 7, 7),     # the group3 head's 7x7 ROIs: pads 1 / 1
+    (1, 1, 256, 1024, 9, 11),   # bottleneck 1x1, Cout % 128 == 0
+    (1, 2, 64, 128, 10, 13),    # 1x1/2 shortcut
+    (3, 1, 512, 512, 4, 4),     # K = 4608, the largest sums
+])
+@pytest.mark.parametrize("relu", [False, True])
+def test_int8_conv_kernel_matches_plain(cuda, k, stride, cin, cout, h, w,
+                                        relu):
+    """Bit for bit: the int32 sum is exact and the epilogue rounds as the
+    plain version does; +-127 extremes included."""
+    rng = np.random.RandomState(k * 1000 + cin + stride)
+    xq = torch.from_numpy(rng.randint(-127, 128, (3, h, w, cin))
+                          .astype(np.int8))
+    xq[0] = 127
+    wt = rng.randint(-127, 128, (k, k, cin, cout)).astype(np.int8)
+    wt[..., 0] = 127
+    packed = pack_weight(torch.from_numpy(wt))
+    scale = torch.from_numpy(rng.uniform(1e-6, 1e-3, cout)
+                             .astype(np.float32))
+    bias = torch.from_numpy(rng.randn(cout).astype(np.float32))
+    args = [t.to(cuda) for t in (xq, packed)] + [k, k] \
+        + [t.to(cuda) for t in (scale, bias)] + [stride, relu]
+    before = int8_conv.launches
+    got = int8_conv(*args)
+    torch.cuda.synchronize()
+    assert int8_conv.launches == before + 1
+    want = int8_conv_plain(*args)
+    assert got.shape == want.shape == (3, -(-h // stride), -(-w // stride),
+                                       cout)
+    assert torch.equal(got, want)

@@ -258,3 +258,38 @@ def test_max_pool_valid_matches_flax(hw):
     want = JL.max_pool(jnp.asarray(x), 3, 2, "VALID")
     got = F.max_pool2d(_nchw(x), 3, 2)
     np.testing.assert_array_equal(_nhwc(got), np.asarray(want))
+
+
+def test_conv0_max_pool_unrounded_matches_flax():
+    """conv0 (7x7/2 SAME, asymmetric pads on an even side, BatchRenorm in
+    eval mode, ReLU) and the 3x3/2 max-pool after it, on an unrounded
+    image-scale blob and He kernel: the f32 summation drift of conv0, which
+    ``tests/test_torch_resnet_engine.py::test_train_steps_match_jax`` rounds
+    away, reaches the pooled values as drift only (a max of values within
+    the drift), held to 1e-5 of the pooled map's max.  Which cell wins a
+    near-tied window is left unchecked: that follows each machine's
+    rounding."""
+    rng = np.random.RandomState(10)
+    x = (rng.randn(2, 32, 44, 3) * 50.0 + 10.0).astype(np.float32)
+    w = (rng.randn(7, 7, 3, 16) * np.sqrt(2.0 / 147)).astype(np.float32)
+    gamma = rng.uniform(0.5, 1.5, 16).astype(np.float32)
+    beta = rng.randn(16).astype(np.float32)
+    mean = rng.randn(16).astype(np.float32) * 5.0
+    var = rng.uniform(50.0, 400.0, 16).astype(np.float32)
+    mod = JL.ConvBlock(16, 7, 2, norm="BN", train=False)
+    want = mod.apply({"params": {"conv": {"kernel": jnp.asarray(w)},
+                                 "bn": {"gamma": jnp.asarray(gamma),
+                                        "beta": jnp.asarray(beta)}},
+                      "batch_stats": {"bn": {"mean": jnp.asarray(mean),
+                                             "var": jnp.asarray(var)}}},
+                     jnp.asarray(x))
+    want = np.asarray(JL.max_pool(want, 3, 2, "VALID"))
+    m = ConvBlock(3, 16, 7, stride=2, norm="BN").eval()
+    with torch.no_grad():
+        m.conv.weight.copy_(torch.from_numpy(w.transpose(3, 2, 0, 1)))
+        m.bn.load_state_dict({k: torch.from_numpy(v) for k, v in (
+            ("gamma", gamma), ("beta", beta), ("mean", mean), ("var", var))})
+        got = _nhwc(F.max_pool2d(m(_nchw(x)), 3, 2))
+    assert got.shape == want.shape == (2, 7, 10, 16) and want.max() > 0
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=1e-5 * np.abs(want).max())

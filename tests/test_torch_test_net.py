@@ -140,7 +140,13 @@ def test_main_end_to_end(setup):
 
 
 @pytest.mark.parametrize("extra,match", [
-    (["--int8"], "A7"), (["--bf16"], "A7"), (["--mesh_data", "2"], "A10"),
+    # --int8 and --bf16 are ported; what they still refuse takes their
+    # places (the ids keep the cases' places in the list)
+    pytest.param(["--int8", "--network", "Resnet_test", "--norm_type", "GN"],
+                 "GroupNorm", id="extra0-A7"),
+    pytest.param(["--int8", "--mesh_data", "2"], "single-device",
+                 id="extra1-A7"),
+    (["--mesh_data", "2"], "A10"),
     # the ResNet detectors are ported; the JAX package's ResNet default of
     # full remat is not (the id keeps the case's place in the list)
     pytest.param(["--network", "Resnet_test", "--remat", "head"], "remat",

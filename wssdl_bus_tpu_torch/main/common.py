@@ -3,10 +3,12 @@
 arguments).
 
 Used by ``main/test.py``, ``main/train.py`` and ``main/train_alter.py``.
-What the port has no path for yet raises ``NotImplementedError`` naming
-the ROADMAP item, never silently ignored: ``--bf16`` (A7), ``--mesh_data``
-/ ``--mesh_model`` > 1 (A10), ``--remat``.  The JAX package's XLA
-compilation cache has no counterpart here.
+``--bf16`` builds the detector with bf16 convs and dense layers
+(``models/detector.py:build_detector(compute_dtype=)``).  What the port
+has no path for yet raises ``NotImplementedError`` naming the ROADMAP
+item, never silently ignored: ``--mesh_data`` / ``--mesh_model`` > 1
+(A10), ``--remat``.  The JAX package's XLA compilation cache has no
+counterpart here.
 """
 
 from __future__ import annotations
@@ -33,7 +35,9 @@ def add_common_args(parser: argparse.ArgumentParser):
     parser.add_argument("--norm_type", default="BN", type=str,
                         help="ResNet normalization type (BN / GN)")
     parser.add_argument("--bf16", action="store_true",
-                        help="bfloat16 compute (not ported yet)")
+                        help="bfloat16 conv / dense compute with f32 "
+                             "params; norms, losses and detection geometry "
+                             "stay f32")
     parser.add_argument("--remat", default=None,
                         choices=["true", "false", "head", "trunk"],
                         help="activation remat (not ported yet)")
@@ -58,10 +62,6 @@ def add_common_args(parser: argparse.ArgumentParser):
 
 def check_ported(args) -> None:
     """Raise for the options the port has no path for yet."""
-    if getattr(args, "bf16", False):
-        raise NotImplementedError(
-            "--bf16: the bf16 compute scope is not ported yet (ROADMAP.md "
-            "A7, bf16 and int8)")
     if getattr(args, "mesh_data", 1) * getattr(args, "mesh_model", 1) > 1:
         raise NotImplementedError(
             "--mesh_data / --mesh_model > 1: multi-device is not ported yet "
@@ -77,7 +77,11 @@ def build_model(args, cfg: Config, freeze_stem: bool = True):
     default init: a snapshot or converted weights are loaded into it):
     ``--network``, and for ``Resnet_*`` ``--net_depth``, ``--norm_type``
     (BN / GN) and the GN group heuristic of ``cfg``
-    (TRAIN.GN_MIN_NUM_G / GN_MIN_CHS_PER_G).  ``freeze_stem`` False lets a
+    (TRAIN.GN_MIN_NUM_G / GN_MIN_CHS_PER_G); ``--bf16`` its compute dtype
+    (the solver trains and evaluates the model it is given, so the dtype
+    reaches ``main.train`` / ``main.train_alter`` through it, where the JAX
+    package passes ``compute_dtype`` down to its ``build_detector``).
+    ``freeze_stem`` False lets a
     VGG16 training network's conv1/conv2 train (``--unfreeze_stem``); the
     stem kernels then never run in training
     (``models/detector.py:stem_is_frozen``)."""
@@ -92,8 +96,12 @@ def build_model(args, cfg: Config, freeze_stem: bool = True):
                          f"{args.norm_type!r}")
     return build_detector(args.network, num_classes=3, device=args.device,
                           freeze_stem=freeze_stem, depth=args.net_depth,
-                          norm=args.norm_type, gn_params=(cfg.TRAIN.GN_MIN_NUM_G,
-                                                cfg.TRAIN.GN_MIN_CHS_PER_G))
+                          norm=args.norm_type,
+                          gn_params=(cfg.TRAIN.GN_MIN_NUM_G,
+                                     cfg.TRAIN.GN_MIN_CHS_PER_G),
+                          compute_dtype=(torch.bfloat16
+                                         if getattr(args, "bf16", False)
+                                         else None))
 
 
 def add_train_args(parser: argparse.ArgumentParser):

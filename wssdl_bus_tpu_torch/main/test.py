@@ -10,9 +10,13 @@ detector ``--network`` names (``VGGnet_test``, or ``Resnet_test`` with
 ``--net_depth`` / ``--norm_type``), restores the port's snapshot
 (``train/checkpoint.py``), runs ``test_net`` and writes ``detections.pkl``,
 ``eval.txt`` (AP / CorLoc) and the FROC points to ``--output_dir``.  Runs
-on CUDA unless ``--device cpu``.
-``--int8`` raises (ROADMAP.md A7), as do the options ``main/common.py:
-check_ported`` names.
+on CUDA unless ``--device cpu``.  ``--bf16`` evaluates in bf16 compute;
+``--int8`` calibrates the activation ranges on ``--calib_images`` images of
+``--calib_imdb`` (default: the evaluated split), quantizes the model
+(``Engine.quantize_for_serving``) and evaluates it through
+``models/quantize.py:QuantServingEngine`` (int8 VGG16 trunk; ResNet trunk
+and group3 head, norm BN; GroupNorm raises).  The options
+``main/common.py:check_ported`` names raise.
 """
 
 from __future__ import annotations
@@ -39,8 +43,15 @@ def parse_args(argv=None):
     parser.add_argument("--batch_size", default=1, type=int,
                         help="images per device step (batched serving path)")
     parser.add_argument("--int8", action="store_true",
-                        help="int8 serving (not ported yet)")
-    parser.add_argument("--calib_imdb", default=None, type=str)
+                        help="evaluate the int8-quantized model instead "
+                             "(VGG trunk; ResNet trunk + group3 head, norm "
+                             "BN; models/quantize.py): quantized-vs-f32 "
+                             "mAP/CorLoc directly.  On the H100 not yet "
+                             "faster than f32 serving, until the int8 "
+                             "conv's epilogue requantizes (ROADMAP.md B)")
+    parser.add_argument("--calib_imdb", default=None, type=str,
+                        help="imdb whose images calibrate int8 activation "
+                             "ranges (default: the evaluated --imdb_test)")
     parser.add_argument("--calib_images", default=16, type=int)
     add_common_args(parser)
     return parser.parse_args(argv)
@@ -53,9 +64,11 @@ def main(argv=None, timings: dict = None):
     print("Called with args:")
     print(args)
     if args.int8:
-        raise NotImplementedError(
-            "--int8: int8 serving is not ported yet (ROADMAP.md A7, bf16 "
-            "and int8)")
+        if args.mesh_data * args.mesh_model > 1:
+            raise NotImplementedError("--int8 is single-device serving")
+        if args.network.startswith("Resnet"):
+            from wssdl_bus_tpu_torch.models.quantize import check_int8_norm
+            check_int8_norm(args.norm_type)
     check_ported(args)
 
     cfg = build_config(args)
@@ -83,11 +96,38 @@ def main(argv=None, timings: dict = None):
     print(f"restored snapshot at iter {step} from {args.model}")
     eng = Engine(model, cfg, canvas, device=args.device,
                  dataset=args.dataset)
+    if args.int8:
+        eng = int8_engine(eng, args, roidb, canvas)
     all_boxes, result = run_test_net(
         eng, imdb, args.output_dir, args.network, canvas, vis=args.qual_res,
         batch_size=args.batch_size, timings=timings)
     print("evaluation result:", np.asarray(result))
     return all_boxes, result
+
+
+def int8_engine(eng, args, roidb, canvas):
+    """Calibrate on ``--calib_images`` images packed as one serving blob,
+    quantize, and -> the int8 engine ``test_net`` evaluates."""
+    from PIL import Image
+
+    from wssdl_bus_tpu_torch.data.dataset import get_imdb, prepare_roidb
+    from wssdl_bus_tpu_torch.evaluate.detect import pack_image_batch
+    from wssdl_bus_tpu_torch.models.quantize import QuantServingEngine
+
+    calib_roidb = roidb
+    if args.calib_imdb:
+        calib_roidb = prepare_roidb(get_imdb(args.calib_imdb, args.data_dir))
+    else:
+        print("int8 NOTE: calibrating on the evaluated split itself: the "
+              "reported delta excludes calibration-set shift; pass "
+              "--calib_imdb <train split> for deployment-honest numbers")
+    images = [np.asarray(Image.open(e["image"]))
+              for e in calib_roidb[:args.calib_images]]
+    blob, _, _ = pack_image_batch(eng, images, args.network, canvas)
+    qtrunk = eng.quantize_for_serving([blob])
+    print(f"int8: calibrated on {len(images)} images from "
+          f"{args.calib_imdb or args.imdb_test}")
+    return QuantServingEngine(eng, qtrunk)
 
 
 if __name__ == "__main__":

@@ -9,9 +9,10 @@
 
 Reads the three imdbs, sizes the static canvas, builds the detector
 (``--network VGGnet_train`` or ``Resnet_train`` with ``--net_depth`` /
-``--norm_type``) and trains it with ``train/solver.py:train_net`` (in-loop
-evaluation, snapshots, ``--resume``).  Runs on CUDA unless ``--device
-cpu``; the options ``main/common.py:check_ported`` names raise.
+``--norm_type``; ``--bf16`` for bf16 convs and dense layers) and trains it
+with ``train/solver.py:train_net`` (in-loop evaluation, snapshots,
+``--resume``).  Runs on CUDA unless ``--device cpu``; the options
+``main/common.py:check_ported`` names raise.
 """
 
 from __future__ import annotations

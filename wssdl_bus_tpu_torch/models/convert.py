@@ -19,7 +19,9 @@ fc6's rows are in NHWC (h, w, c) flatten order on both sides (the port's
 ROI pool writes the same order), so no row permutation is needed.
 
 :func:`opt_state_from_jax` carries an optax optimizer state across the
-same way, into ``train/engine.py:Optimizer.load_state_dict``'s format.
+same way, into ``train/engine.py:Optimizer.load_state_dict``'s format, and
+:func:`qtrunk_from_jax` an int8 serving tree of the JAX package's
+``models/quantize.py`` into the port's (``models/quantize.py``).
 :func:`reference_init_` draws the JAX package's initialisation (truncated
 normal, std 0.01; 0.001 for ``bbox_pred``; zero biases; the norms at their
 identity) from a seeded ``torch.Generator``.
@@ -217,3 +219,31 @@ def reference_init_(model: torch.nn.Module, seed: int) -> torch.nn.Module:
             val = torch.full(t.shape, _CONSTANT_INIT[key.rsplit(".", 1)[-1]])
         t.copy_(val)
     return model
+
+
+def _qlayer_from_jax(layer, device) -> dict:
+    from wssdl_bus_tpu_torch.models.quantize import qlayer
+
+    return qlayer(np.array(layer["qkernel"], np.int8), layer["scale"],
+                  layer["bias"], layer["in_scale"], device)
+
+
+def qtrunk_from_jax(tree, device="cpu") -> dict:
+    """The JAX package's int8 serving tree (``quantize_vgg_trunk`` /
+    ``quantize_resnet`` output, as numpy) -> the port's
+    (``models/quantize.py``) on ``device``: each int8 HWIO kernel packed for
+    the kernel (``ops/int8_conv.py:pack_weight``) beside its size ``k``;
+    scales, biases and norm affines as they are.  The JAX tree's f32 RPN
+    and dense copies are left out: the port runs the model's own."""
+    if "layers" in tree:                                  # VGG16
+        return {"layers": [_qlayer_from_jax(l, device)
+                           for l in tree["layers"]]}
+
+    def part(p):
+        return {"layers": {path: _qlayer_from_jax(l, device)
+                           for path, l in p["layers"].items()},
+                "norms": {path: {k: torch.as_tensor(
+                    np.array(a[k], np.float32), device=device)
+                    for k in ("g", "c")} for path, a in p["norms"].items()}}
+
+    return {"trunk": part(tree["trunk"]), "head": part(tree["head"])}

@@ -6,7 +6,10 @@
 in ``ops/``.  Public tensors keep the JAX package's NHWC layout: images
 enter as [B, H, W, 3], and ``apply_trunk`` returns the feature map and RPN
 outputs as [B, h, w, C], so the proposal layer flattens scores in the
-(h, w, a) order the anchors are enumerated in.
+(h, w, a) order the anchors are enumerated in.  Both return f32 whatever
+the compute dtype (``build_detector(compute_dtype=torch.bfloat16)``,
+``models/layers.py``), as the JAX package's ``apply_trunk`` /
+``apply_head`` cast their outputs back.
 """
 
 from __future__ import annotations
@@ -14,7 +17,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from wssdl_bus_tpu_torch.models.layers import ConvBlock
+from wssdl_bus_tpu_torch.models.layers import ConvBlock, set_compute_dtype
 from wssdl_bus_tpu_torch.models.resnet import (RESNET_DEFS, ResNetBackbone,
                                                ResNetRCNNHead,
                                                feature_channels)
@@ -63,10 +66,16 @@ class TrunkRPN(nn.Module):
             raise ValueError("stem_done is a VGG-only fast path")
         else:
             feat = self.backbone(x)
+        return self.heads(feat)
+
+    def heads(self, feat):
+        """The RPN convs over the NCHW (channels_last) feature map ->
+        (feat, rpn_cls_score, rpn_bbox_pred), each NHWC f32 and contiguous;
+        also the tail of the int8 trunk (``models/quantize.py``)."""
         rpn = self.rpn_conv(feat)
         score = self.rpn_cls_score(rpn)
         bbox = self.rpn_bbox_pred(rpn)
-        return tuple(t.permute(0, 2, 3, 1).contiguous()
+        return tuple(t.permute(0, 2, 3, 1).float().contiguous()
                      for t in (feat, score, bbox))
 
 
@@ -89,11 +98,13 @@ class FasterRCNN(nn.Module):
     "BN" / "GN" / None).  ``gn_params``: (GN_MIN_NUM_G, GN_MIN_CHS_PER_G),
     the group heuristic of every ``GroupNormRef``.  State-dict keys mirror
     the JAX variable tree (``models/convert.py``); BatchRenorm's running
-    statistics are buffers, so ``state_dict()`` carries them."""
+    statistics are buffers, so ``state_dict()`` carries them.
+    ``compute_dtype``: None (f32) or ``torch.bfloat16``, the compute dtype
+    of every conv and dense layer (``models/layers.py``)."""
 
     def __init__(self, num_classes: int = 3, num_anchors: int = 9,
                  backbone: str = "VGGnet", depth: int = 50, norm=None,
-                 gn_params=(8, 4)):
+                 gn_params=(8, 4), compute_dtype=None):
         super().__init__()
         if backbone not in ("VGGnet", "Resnet"):
             raise KeyError(f"unknown backbone {backbone!r}")
@@ -108,6 +119,8 @@ class FasterRCNN(nn.Module):
                               gn_params)
         self.head = (VGGRCNNHead(num_classes) if backbone == "VGGnet" else
                      ResNetRCNNHead(depth, self.norm, num_classes, gn_params))
+        self.compute_dtype = compute_dtype
+        set_compute_dtype(self, compute_dtype)
 
     def apply_trunk(self, data, stem_frozen: bool = True,
                     plain_ops: bool = False):
@@ -131,9 +144,11 @@ class FasterRCNN(nn.Module):
         (the Engine passes :func:`stem_is_frozen`).  An unfrozen stem in
         training runs the library stem with real gradients.  ``plain_ops``
         takes the kernels' plain versions instead (``vgg_stem_plain``,
-        ``vgg_conv2_pool_plain``).  (The JAX tail also requires the f32
-        compute path; the port has no other compute dtype yet.)  A ResNet
-        trunk has no stem kernel and runs its modules as they are."""
+        ``vgg_conv2_pool_plain``).  The tail also requires the f32 compute
+        dtype, as in the JAX package (``detector.py:198``); the fused stem
+        does not, and hands its f32 output to conv2_1 under bf16 too.  A
+        ResNet trunk has no stem kernel and runs its modules as they
+        are."""
         stem = None
         if self.backbone == "VGGnet" and (stem_frozen or not self.training):
             stem = self._stem(data, plain_ops)
@@ -149,7 +164,8 @@ class FasterRCNN(nn.Module):
             fn = vgg_stem_plain if plain_ops else vgg_stem_fused
             with torch.no_grad():
                 return fn(data, *_hwio(bb.conv1_1), *_hwio(bb.conv1_2))
-        if conv2_pool_ok(tuple(data.shape), data.device):
+        if conv2_pool_ok(tuple(data.shape), data.device) \
+                and self.compute_dtype is None:
             fn = vgg_conv2_pool_plain if plain_ops else vgg_conv2_pool
             with torch.no_grad():
                 a1 = vgg_conv1_1(data, *_hwio(bb.conv1_1),
@@ -162,8 +178,9 @@ class FasterRCNN(nn.Module):
         [N, 7*7*C] (VGG16) or the pooled [N, 7, 7, C] (ResNet).  In
         training mode the VGG head's dropouts use the masks ``keep`` (fc6,
         fc7) or draw from ``generator`` (models/vgg.py:VGGRCNNHead); the
-        ResNet head has no dropout."""
-        return self.head(roi_feats, keep, generator)
+        ResNet head has no dropout.  Both outputs f32."""
+        cls, bbox = self.head(roi_feats, keep, generator)
+        return cls.float(), bbox.float()
 
 
 def _hwio(block: ConvBlock):
@@ -196,7 +213,7 @@ def freeze_vgg_stem(model: FasterRCNN) -> FasterRCNN:
 
 def build_detector(name: str, num_classes: int = 3, device=None,
                    freeze_stem: bool = True, depth: int = 50, norm=None,
-                   gn_params=(8, 4)) -> FasterRCNN:
+                   gn_params=(8, 4), compute_dtype=None) -> FasterRCNN:
     """Factory mirroring the JAX package's ``build_detector`` names:
     '*_test' builds the detector in eval mode, '*_train' (and '_alter'
     variants) in training mode.  'VGGnet_*' is VGG16, with conv1/conv2
@@ -205,9 +222,11 @@ def build_detector(name: str, num_classes: int = 3, device=None,
     featureless).  'Resnet_*' is the ResNet of ``depth`` (18, 34, 50, 101)
     with ``norm`` ("BN", "GN" or None) and ``gn_params``; nothing of it is
     frozen (``freeze_stem`` is ignored, as the JAX package's
-    ``Engine.init`` ignores it).  On ``device`` (CUDA unless named; raises
-    without a card), channels_last.  Weights are PyTorch's default init:
-    load converted or seeded weights with ``models/convert.py``."""
+    ``Engine.init`` ignores it).  ``compute_dtype`` None (f32) or
+    ``torch.bfloat16`` (the ``--bf16`` option): the convs and dense layers
+    compute in it, parameters stay f32.  On ``device`` (CUDA unless named;
+    raises without a card), channels_last.  Weights are PyTorch's default
+    init: load converted or seeded weights with ``models/convert.py``."""
     if name.startswith("Resnet"):
         kw = dict(backbone="Resnet", depth=depth, norm=norm,
                   gn_params=tuple(gn_params))
@@ -216,7 +235,8 @@ def build_detector(name: str, num_classes: int = 3, device=None,
     else:
         raise KeyError(f"unknown network name {name}")
     dev = resolve_device(device)
-    model = FasterRCNN(num_classes=num_classes, **kw).to(
+    model = FasterRCNN(num_classes=num_classes, compute_dtype=compute_dtype,
+                       **kw).to(
         device=dev, memory_format=torch.channels_last)
     if "_train" in name:
         if model.backbone == "VGGnet" and freeze_stem:

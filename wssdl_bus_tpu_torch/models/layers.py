@@ -7,8 +7,19 @@ layout cuDNN prefers); ``Fc`` flattens a 4-D input in NHWC (h, w, c) order,
 the JAX package's fc6 row order.  The norms keep the JAX tree's names:
 ``BatchRenorm``'s affine parameters are ``gamma`` / ``beta`` and its running
 statistics the buffers ``mean`` / ``var`` (``models/convert.py`` maps them
-to the ``params`` and ``batch_stats`` collections).  The bf16 compute scope
-arrives with the mixed-precision slice.
+to the ``params`` and ``batch_stats`` collections).
+
+Mixed precision (the JAX package's ``compute_dtype_scope``): a
+``ConvBlock`` or ``Fc`` whose ``compute_dtype`` is set (bfloat16) casts its
+input, kernel and bias to it and computes the conv / matmul and the bias
+add there, with f32 parameters; the activation chain stays in that dtype
+between convs, both norms cast their input to f32 first, and
+``models/detector.py`` casts the trunk's and the head's outputs back to
+f32.  The dtype is an attribute of each module, set once by
+``models/detector.py:build_detector`` (:func:`set_compute_dtype`), not a
+scope: PyTorch runs eagerly, and an attribute travels with the model into
+every thread that runs it (the prefetch and evaluation threads) where a
+thread-local scope would not.
 """
 
 from __future__ import annotations
@@ -46,6 +57,7 @@ class BatchRenorm(nn.Module):
         self.register_buffer("var", torch.ones(channels))
 
     def forward(self, x):
+        x = x.float()       # statistics in f32 under a bf16 compute dtype
         shape = (1, -1) + (1,) * (x.ndim - 2)
         gamma, beta = self.gamma.view(shape), self.beta.view(shape)
         if not self.training:
@@ -107,6 +119,7 @@ class GroupNormRef(nn.Module):
         self.beta = nn.Parameter(torch.zeros(channels))
 
     def forward(self, x):
+        x = x.float()       # statistics in f32 under a bf16 compute dtype
         c = x.shape[1]
         xh = x.movedim(1, -1)
         xg = xh.reshape(xh.shape[:-1] + (c // self.groups, self.groups))
@@ -175,19 +188,30 @@ class ConvBlock(nn.Module):
         if nrm is not None:
             self.add_module(self.norm_name, nrm)
         self.relu = relu
+        self.compute_dtype = None
 
     def forward(self, x):
+        weight, bias = self.conv.weight, self.conv.bias
+        dt = self.compute_dtype
+        if dt is not None:
+            # flax's Conv(dtype=dt): input, kernel and bias in dt, the bias
+            # added after the conv in dt
+            x, weight = x.to(dt), weight.to(dt)
+        padding = self.conv.padding
         if self.same and self.stride > 1:
             k = self.conv.kernel_size[0]
             (t, b), (lf, rt) = (same_pads(s, k, self.stride)
                                 for s in x.shape[2:])
             if (t, lf) == (b, rt):
-                y = F.conv2d(x, self.conv.weight, self.conv.bias,
-                             self.stride, (t, lf))
+                padding = (t, lf)
             else:
-                y = self.conv(F.pad(x, (lf, rt, t, b)))
+                x = F.pad(x, (lf, rt, t, b))
+        if dt is None:
+            y = F.conv2d(x, weight, bias, self.stride, padding)
         else:
-            y = self.conv(x)
+            y = F.conv2d(x, weight, None, self.stride, padding)
+            if bias is not None:
+                y = y + bias.to(dt).view(1, -1, 1, 1)
         if self.norm_name is not None:
             y = getattr(self, self.norm_name)(y)
         return F.relu(y) if self.relu else y
@@ -201,12 +225,31 @@ class Fc(nn.Module):
         super().__init__()
         self.dense = nn.Linear(in_features, features)
         self.relu = relu
+        self.compute_dtype = None
 
     def forward(self, x):
         if x.ndim == 4:
             x = x.reshape(x.shape[0], -1)
-        y = self.dense(x)
+        dt = self.compute_dtype
+        if dt is None:
+            y = self.dense(x)
+        else:
+            # flax's Dense(dtype=dt): the matmul and the bias add in dt
+            y = F.linear(x.to(dt), self.dense.weight.to(dt)) \
+                + self.dense.bias.to(dt)
         return F.relu(y) if self.relu else y
+
+
+def set_compute_dtype(module: nn.Module, dtype) -> nn.Module:
+    """Set the compute dtype (None for f32, or ``torch.bfloat16``) of every
+    ``ConvBlock`` and ``Fc`` under ``module``; -> ``module``."""
+    if dtype is not None and dtype != torch.bfloat16:
+        raise ValueError(f"compute dtype must be None or bfloat16, got "
+                         f"{dtype}")
+    for m in module.modules():
+        if isinstance(m, (ConvBlock, Fc)):
+            m.compute_dtype = dtype
+    return module
 
 
 def max_pool(x, k: int = 2, s: int = 2):
@@ -231,6 +274,7 @@ class Dropout(nn.Module):
         if not self.training:
             return x
         if keep is None:
+            # drawn in f32 whatever x's dtype, as flax's bernoulli is
             keep = torch.rand(x.shape, generator=generator, device=x.device,
-                              dtype=x.dtype) < self.keep_prob
+                              dtype=torch.float32) < self.keep_prob
         return torch.where(keep, x / self.keep_prob, torch.zeros_like(x))

@@ -23,6 +23,12 @@ forward.  The pool's backward is a CUDA kernel (``wssdl_roi_pool_bwd``,
 regime's weak step (``_train_step_mil_impl``): the MIL loss alone over weak
 images, with batch-statistics normalisation and the running statistics left
 as they are (``models/layers.py:running_stats_frozen``).
+``Engine.inference_step_quant`` is the serving step with the int8 model of
+``Engine.quantize_for_serving`` (``models/quantize.py``; the JAX
+package's ``_inference_quant_impl``): the int8 trunk (the CUDA kernel
+``csrc/int8_conv.cu``) and, for ResNet, the int8 group3 head; the RPN
+convs and the dense layers are the model's own, and all detection
+geometry stays f32.
 ``Engine.eval_step`` is the in-training evaluation forward (``eval_step``):
 TEST proposal budgets, every image supervised, no GT appended to the ROI
 candidates, the head in eval mode, and per-image losses.
@@ -325,6 +331,58 @@ class Engine:
         props = self._proposals(rpn_score, rpn_bbox, im_info, self.cfg.TEST)
         pooled = self._pool_for_head(feat, props.boxes)
         cls_score, bbox_pred = self.model.apply_head(pooled)
+        cls_prob = torch.softmax(cls_score, dim=-1)
+        return (proposals_to_rois(props), props.valid.reshape(-1), cls_score,
+                cls_prob, bbox_pred)
+
+    # ------------------------------------------------------------------ #
+    # int8 serving (models/quantize.py)
+    # ------------------------------------------------------------------ #
+    def quantize_for_serving(self, calib_batches):
+        """Post-training int8 quantization for serving -> the quantized
+        tree :meth:`inference_step_quant` takes, on the engine's device.
+
+        ``calib_batches`` iterates [B, H, W, 3] serving blobs for the
+        activation ranges.  VGG16 quantizes the trunk (its fc head stays
+        the model's); ResNet the trunk and the group3 head (norm None /
+        "BN": GroupNorm is data-dependent at serving time and raises
+        ``NotImplementedError``).  ResNet calibration pools with the
+        engine's pool (kernel #3, or its plain version for ``plain_ops``)
+        at the head's geometry."""
+        from wssdl_bus_tpu_torch.models import quantize as Q
+
+        if self.model.backbone == "VGGnet":
+            scales = Q.calibrate_vgg_trunk(self.model, calib_batches)
+            return Q.quantize_vgg_trunk(self.model, scales, self.device)
+        scales = Q.calibrate_resnet(
+            self.model, calib_batches,
+            spatial_scale=1.0 / self.cfg.FEAT_STRIDE, pool=self._pool)
+        return Q.quantize_resnet(self.model, scales, self.device)
+
+    @torch.inference_mode()
+    def inference_step_quant(self, qtrunk: dict, data, im_info):
+        """:meth:`inference_step` with the int8 model ``qtrunk``: the same
+        outputs (rois5, valid, cls_score, cls_prob, bbox_pred).  The int8
+        convs run in the kernel (their plain version for ``plain_ops`` or on
+        the CPU); the RPN convs and the dense layers are the model's own,
+        in its compute dtype."""
+        from wssdl_bus_tpu_torch.models import quantize as Q
+
+        self.model.eval()
+        data = torch.as_tensor(data, dtype=torch.float32, device=self.device)
+        im_info = torch.as_tensor(im_info, dtype=torch.float32,
+                                  device=self.device)
+        m, plain = self.model, self.plain_ops
+        trunk_apply = (Q.quant_trunk_apply if m.backbone == "VGGnet" else
+                       Q.quant_resnet_trunk_apply)
+        feat, rpn_score, rpn_bbox = trunk_apply(m, qtrunk, data, plain)
+        props = self._proposals(rpn_score, rpn_bbox, im_info, self.cfg.TEST)
+        pooled = self._pool_for_head(feat, props.boxes)
+        if m.backbone == "VGGnet":
+            cls_score, bbox_pred = m.apply_head(pooled)
+        else:
+            cls_score, bbox_pred = Q.quant_resnet_head_apply(
+                m, qtrunk, pooled, plain)
         cls_prob = torch.softmax(cls_score, dim=-1)
         return (proposals_to_rois(props), props.valid.reshape(-1), cls_score,
                 cls_prob, bbox_pred)

@@ -695,7 +695,9 @@ def train_net(network, roidb_train_s, roidb_train_ws, imdb_test, roidb_test,
     signature parity and unused, as in the reference's ``train_model``.
     ``model``: the detector ``network`` names, built by the caller
     (``main/common.py:build_model``; its ``freeze_stem`` decides whether
-    conv1/conv2 train); ``device``: CUDA unless named."""
+    conv1/conv2 train, its compute dtype whether the step runs in bf16,
+    the JAX package's ``compute_dtype`` argument); ``device``: CUDA unless
+    named."""
     del s_start_iter, s_end_iter, ws_start_iter, ws_end_iter  # parity only
     solver = _build_solver(
         network, model, roidb_train_s, roidb_train_ws, imdb_test, roidb_test,
