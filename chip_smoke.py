@@ -138,9 +138,12 @@ directory without the port beside it, phase 0 fails so):
  14. (after phase 13) bf16 and int8, VGG16 and ResNet-18 BN (int8 also
      ResNet-50 BN) at the served
      canvas: the int8 conv kernel (``csrc/int8_conv.cu``) against its
-     plain version, bit for bit, at every layer shape of each model's
-     batch-8 int8 step (the inputs recorded from that step), timed beside
-     its bound (int8 operations at 1,979 TOP/s or bytes), cuDNN's bf16 conv
+     plain version, bit for bit, in both variants (f32 out, and int8 out
+     through its requantizing epilogue) at every layer shape of each
+     model's batch-8 int8 step (the inputs recorded from that step; 12 /
+     8 / 32 convs of the VGG16 / ResNet-18 BN / ResNet-50 BN step write
+     int8), each timed beside its bound (int8 operations at 1,979 TOP/s,
+     or bytes at the output's element size), cuDNN's bf16 conv
      of the same layer and, for a 1x1 layer, ``torch._int_mm`` on its
      operand (library yardsticks the port never calls); int8 serving
      through ``Engine.quantize_for_serving`` (calibrated on the requests'
@@ -722,6 +725,14 @@ def profile_step(eng, requests, net, out_dir: str, tag: str = ""):
     for e in events[:15]:
         print(f"[profile{tag}] {e.device_time_total / 3e3:9.4f} ms/step "
               f"x{e.count // 3:<4d} {e.key[:110]}", flush=True)
+    # the int8 path's PyTorch quantize steps (x / s, round, clamp) and
+    # whatever else divides, rounds or clamps
+    quant = [e for e in events if any(w in e.key.lower()
+                                      for w in ("div", "round", "clamp"))]
+    print(f"[profile{tag}] div / round / clamp kernels: "
+          f"{sum(e.count for e in quant) // 3} a step, "
+          f"{sum(e.device_time_total for e in quant) / 3e3:.4f} ms/step",
+          flush=True)
     os.makedirs(out_dir, exist_ok=True)
     prof.export_chrome_trace(os.path.join(out_dir,
                                           f"serve_b8{tag}_trace.json"))
@@ -2742,23 +2753,34 @@ def run_resnet(st, kern, eval_data, requests, out_dir, smi,
 # phase 14: bf16 compute and int8 serving
 # --------------------------------------------------------------------- #
 INT8_OPS_PER_S = 1979e12    # dense int8 on the tensor cores (data sheet)
+# the convs of a step whose epilogue writes the next layer's int8 input
+# (models/quantize.py's docstring): VGG16 conv1_1 ... conv5_2; ResNet-18
+# each basic block's conv1; ResNet-50 each bottleneck's conv1 and conv2
+INT8_OUT_LAYERS = {"vgg16": 12, "resnet18_bn": 8, "resnet50_bn": 32}
 
 
 @contextlib.contextmanager
 def recorded_int8_convs():
     """Within the block the int8 walks (``models/quantize.py``) call the
     kernel's wrapper through a recorder: -> {(B, H, W, Cin, Cout, k,
-    stride): {"args": the first call's arguments, "calls": n}}."""
+    stride): {"args": the first call's arguments but ``out_scale``,
+    "out_scale": the first int8-out call's or None, "calls": {"f32": n,
+    "int8": n}}}."""
     from wssdl_bus_tpu_torch.models import quantize as Q
     from wssdl_bus_tpu_torch.ops.int8_conv_cuda import int8_conv
 
     seen = {}
 
-    def rec(xq, packed, kh, kw, scale, bias, stride=1, relu=False):
+    def rec(xq, packed, kh, kw, scale, bias, stride=1, relu=False,
+            out_scale=None):
         args = (xq, packed, kh, kw, scale, bias, stride, relu)
         key = (*xq.shape, int(packed.shape[0]), kh, stride)
-        seen.setdefault(key, {"args": args, "calls": 0})["calls"] += 1
-        return int8_conv(*args)
+        e = seen.setdefault(key, {"args": args, "out_scale": None,
+                                  "calls": {"f32": 0, "int8": 0}})
+        e["calls"]["f32" if out_scale is None else "int8"] += 1
+        if e["out_scale"] is None:
+            e["out_scale"] = out_scale
+        return int8_conv(*args, out_scale)
 
     real = Q._int8_conv_fn
     Q._int8_conv_fn = lambda plain: rec
@@ -2768,12 +2790,16 @@ def recorded_int8_convs():
         Q._int8_conv_fn = real
 
 
-def int8_conv_stats(args) -> dict:
+def int8_conv_stats(args, out_scale=None) -> dict:
     """The int8 conv kernel against its plain version at one layer's real
-    inputs (bit for bit), CUDA-event times, the bound, and two library
-    yardsticks the port never calls: cuDNN's bf16 conv of the same layer,
-    and for a 1x1 layer ``torch._int_mm`` on its (strided) operand, whose
-    int32 product is checked equal to the plain accumulator."""
+    inputs, bit for bit, in both variants: f32 out, and int8 out (the
+    requantizing epilogue) at ``out_scale`` (the path's next-layer scale,
+    or, for a layer the path runs with f32 out, the f32 output's absmax /
+    127); CUDA-event times and bounds of both (the output's real element
+    size), the tile plan, and two library yardsticks the port never calls:
+    cuDNN's bf16 conv of the same layer, and for a 1x1 layer
+    ``torch._int_mm`` on its (strided) operand, whose int32 product is
+    checked equal to the plain accumulator."""
     import torch
     import torch.nn.functional as F
 
@@ -2781,25 +2807,39 @@ def int8_conv_stats(args) -> dict:
                                                    int8_conv_acc_plain,
                                                    int8_conv_plain,
                                                    unpack_weight)
-    from wssdl_bus_tpu_torch.ops.int8_conv_cuda import int8_conv
+    from wssdl_bus_tpu_torch.ops.int8_conv_cuda import int8_conv, tile_plan
 
     xq, packed, kh, kw, scale, bias, stride, relu = args
     b, h, w, cin = xq.shape
     cout = int(packed.shape[0])
-    got = int8_conv(*args)
-    want = int8_conv_plain(*args)
-    torch.cuda.synchronize()
-    err = float((got - want).abs().max())
-    shape = f"{tuple(xq.shape)} {kh}x{kw}/{stride} -> {tuple(got.shape)}"
-    _check(torch.equal(got, want), f"int8_conv {shape}: differs from its "
-           f"plain version (max |diff| {err})")
-    ms = cuda_ms(lambda: int8_conv(*args), iters=10)
-    plain_ms = cuda_ms(lambda: int8_conv_plain(*args), iters=1, warmup=1)
     (pt, pb), (pl, pr), (ho, wo) = conv_pads(h, w, kh, kw, stride)
     macs = b * ho * wo * cout * kh * kw * cin
-    nbytes = xq.numel() + packed.numel() + 8 * cout + got.numel() * 4
     t_ops = 2 * macs / INT8_OPS_PER_S * 1e3
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    shape = f"{tuple(xq.shape)} {kh}x{kw}/{stride} -> {(b, ho, wo, cout)}"
+    out = {"shape": shape, "macs": macs, "ops_ms": t_ops,
+           "plan": tile_plan(b, h, w, cin, cout, kh, stride)._asdict()}
+    for variant in ("f32", "int8"):
+        if variant == "int8" and out_scale is None:
+            out_scale = (int8_conv_plain(*args).abs().max() / 127).clamp_min(
+                1e-12)
+        va = args + ((out_scale,) if variant == "int8" else ())
+        got = int8_conv(*va)
+        want = int8_conv_plain(*va)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        _check(got.dtype == want.dtype and torch.equal(got, want),
+               f"int8_conv {shape} {variant} out: differs from its plain "
+               f"version (max |diff| {err})")
+        ms = cuda_ms(lambda: int8_conv(*va), iters=10)
+        plain_ms = cuda_ms(lambda: int8_conv_plain(*va), iters=1, warmup=1)
+        nbytes = xq.numel() + packed.numel() + 8 * cout \
+            + got.numel() * got.element_size()
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        out[variant] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                        "bound_ms": max(t_ops, t_bytes),
+                        "bound_by": "operations" if t_ops >= t_bytes
+                        else "bytes", "bytes_ms": t_bytes}
+        del got, want
     wt = unpack_weight(packed, kh, kw, cin)
     xb = F.pad(xq.permute(0, 3, 1, 2).to(torch.bfloat16),
                (pl, pr, pt, pb)).contiguous(memory_format=torch.channels_last)
@@ -2817,13 +2857,9 @@ def int8_conv_stats(args) -> dict:
                f"torch._int_mm {shape}: not the plain accumulator")
         int_mm_ms = cuda_ms(lambda: torch._int_mm(a, m), iters=10)
         del a, m, acc
-    del got, want
-    return {"shape": shape, "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "ops_ms": t_ops, "bytes_ms": t_bytes,
-            "library_ms": cudnn_ms, "library": "cudnn bf16 conv",
-            "int_mm_ms": int_mm_ms, "macs": macs}
+    out.update(library_ms=cudnn_ms, library="cudnn bf16 conv",
+               int_mm_ms=int_mm_ms)
+    return out
 
 
 def keep_set_agreement(out_q, out_f, batch: int) -> dict:
@@ -2890,25 +2926,44 @@ def int8_serve(tag, model, cfg, canvas, net, requests, smi, out_dir,
                f"{tag} int8 serving: outputs {scores.shape} {boxes.shape}")
     shapes = {}
     for key, entry in seen.items():
-        st = int8_conv_stats(entry["args"])
+        st = int8_conv_stats(entry["args"], entry["out_scale"])
         st["calls_per_step"] = entry["calls"]
         shapes["x".join(map(str, key))] = st
-        print(f"[int8] {tag} {st['shape']} x{entry['calls']}: kernel "
-              f"{st['ms']:.4f} ms (bound {st['bound_ms']:.4f} by "
-              f"{st['bound_by']}, {st['bound_ms'] / st['ms']:.2f} of it), "
-              f"plain {st['plain_ms']:.3f}, cuDNN bf16 conv "
-              f"{st['library_ms']:.4f}"
+        p = st["plan"]
+        print(f"[int8] {tag} {st['shape']} x{entry['calls']} ({p['path']} "
+              f"path, tile {p['bn']}x{p['bh']}x{p['bw']} of {p['rows']} "
+              f"rows): "
+              + "; ".join(
+                  f"{v} out {st[v]['ms']:.4f} ms (bound "
+                  f"{st[v]['bound_ms']:.4f} by {st[v]['bound_by']}, "
+                  f"{st[v]['bound_ms'] / st[v]['ms']:.2f} of it), plain "
+                  f"{st[v]['plain_ms']:.3f}" for v in ("f32", "int8"))
+              + f"; cuDNN bf16 conv {st['library_ms']:.4f}"
               + ("" if st["int_mm_ms"] is None
                  else f", torch._int_mm {st['int_mm_ms']:.4f}")
-              + "; equal bit for bit", flush=True)
-    _check(sum(e["calls"] for e in seen.values()) == n_convs,
-           f"{tag}: the recorded step made "
-           f"{sum(e['calls'] for e in seen.values())} int8 convs, not "
-           f"{n_convs}")
-    step = {k: sum(st[k] * st["calls_per_step"] for st in shapes.values())
-            for k in ("ms", "plain_ms", "bound_ms", "library_ms", "macs")}
-    by_ops = sum(st["bound_ms"] * st["calls_per_step"]
-                 for st in shapes.values() if st["bound_by"] == "operations")
+              + "; both equal bit for bit", flush=True)
+    calls = sum(sum(e["calls"].values()) for e in seen.values())
+    _check(calls == n_convs, f"{tag}: the recorded step made {calls} int8 "
+           f"convs, not {n_convs}")
+    n_int8 = sum(e["calls"]["int8"] for e in seen.values())
+    _check(n_int8 == INT8_OUT_LAYERS[tag], f"{tag}: {n_int8} convs of the "
+           f"step wrote int8, want {INT8_OUT_LAYERS[tag]}")
+
+    def per_step(k):
+        """A step's sum over its layers, each in the variant it ran."""
+        return sum(st[v][k] * st["calls_per_step"][v]
+                   for st in shapes.values() for v in ("f32", "int8"))
+
+    step = {k: per_step(k) for k in ("ms", "plain_ms", "bound_ms")}
+    step.update({k: sum(st[k] * sum(st["calls_per_step"].values())
+                        for st in shapes.values())
+                 for k in ("library_ms", "macs")})
+    step["max_abs_err"] = max(st[v]["max_abs_err"] for st in shapes.values()
+                              for v in ("f32", "int8"))
+    step["int8_out_convs"] = n_int8
+    by_ops = sum(st[v]["bound_ms"] * st["calls_per_step"][v]
+                 for st in shapes.values() for v in ("f32", "int8")
+                 if st[v]["bound_by"] == "operations")
     step["bound_by"] = ("operations" if 2 * by_ops >= step["bound_ms"]
                         else "bytes")
     with pytorch_defaults():
@@ -2935,8 +2990,10 @@ def int8_serve(tag, model, cfg, canvas, net, requests, smi, out_dir,
     print(f"[int8] {tag}: calibrated and quantized in {calib_s:.2f} s; "
           f"{len(out)} requests served, launches {counts} ({n_convs} int8 "
           f"convs a step); {pool} by path {paths[pool]}; the batch-8 step's "
-          f"{n_convs} convs: kernel {step['ms']:.3f} ms, bound "
-          f"{step['bound_ms']:.3f} ms ({step['macs'] / 1e12:.3f} TMAC), "
+          f"{n_convs} convs ({n_int8} with int8 out): kernel "
+          f"{step['ms']:.3f} ms, bound {step['bound_ms']:.3f} ms "
+          f"({step['bound_ms'] / step['ms']:.2f} of it; "
+          f"{step['macs'] / 1e12:.3f} TMAC), "
           f"plain {step['plain_ms']:.1f} ms, cuDNN bf16 convs "
           f"{step['library_ms']:.3f} ms; through the kernels == plain_ops="
           f"True (all five outputs, TF32 off); keep sets vs f32: {agree}",
@@ -3426,12 +3483,12 @@ def main() -> int:
         JAX package): its numbers are those of the VGG16 batch-8 int8 step,
         summed over its 13 layers; every layer shape in per_shape."""
         vgg = int8["vgg16"]["step"]
-        errs = [st["max_abs_err"] for r in int8.values()
-                for st in r["per_shape"].values()]
         return dict(name="int8_conv", route="cuda",
                     source="wssdl_bus_tpu_torch/csrc/int8_conv.cu",
                     replaces="wssdl_bus_tpu/models/quantize.py:127",
-                    **launches("int8_conv"), max_abs_err=max(errs),
+                    **launches("int8_conv"),
+                    max_abs_err=max(r["step"]["max_abs_err"]
+                                    for r in int8.values()),
                     ms=vgg["ms"], plain_ms=vgg["plain_ms"],
                     bound_ms=vgg["bound_ms"], bound_by=vgg["bound_by"],
                     library_ms=vgg["library_ms"],

@@ -677,24 +677,32 @@ def test_native_host_library_loads(cuda):
     assert native.nms(dets, 0.5) == [0]
 
 
-@pytest.mark.parametrize("k,stride,cin,cout,h,w", [
-    (3, 1, 64, 64, 19, 23),     # VGG16 3x3 SAME, a ragged M tile
-    (3, 1, 3, 64, 16, 20),      # conv1_1: Cin = 3, K = 27 (byte gather)
-    (7, 2, 3, 64, 24, 32),      # conv0: pads 2 / 3
-    (7, 2, 3, 64, 23, 31),      # conv0, odd sides: pads 3 / 3
-    (3, 2, 64, 128, 12, 14),    # 3x3/2, pads 0 / 1
-    (3, 2, 128, 256, 7, 7),     # the group3 head's 7x7 ROIs: pads 1 / 1
-    (1, 1, 256, 1024, 9, 11),   # bottleneck 1x1, Cout % 128 == 0
-    (1, 2, 64, 128, 10, 13),    # 1x1/2 shortcut
-    (3, 1, 512, 512, 4, 4),     # K = 4608, the largest sums
+@pytest.mark.parametrize("k,stride,cin,cout,b,h,w", [
+    (3, 1, 64, 64, 3, 19, 23),     # the halo path, ragged tiles
+    (3, 1, 64, 128, 2, 21, 35),    # the halo path, Cout 128
+    (3, 1, 128, 64, 3, 19, 23),    # the TMA path, 3x3 SAME, ragged
+    (3, 1, 3, 64, 3, 16, 20),      # conv1_1: Cin = 3, K = 27 (own path)
+    (7, 2, 3, 64, 3, 24, 32),      # conv0: pads 2 / 3
+    (7, 2, 3, 64, 3, 23, 31),      # conv0, odd sides: pads 3 / 3
+    (3, 2, 64, 128, 3, 12, 14),    # 3x3/2, pads 0 / 1
+    (3, 2, 128, 256, 3, 7, 7),     # the group3 head's 7x7 ROIs: pads 1 / 1
+    (3, 2, 256, 512, 40, 7, 7),    # the head's ROIs, 16 images a tile
+    (3, 1, 512, 512, 40, 4, 4),    # the head's 4x4 blocks
+    (1, 1, 256, 1024, 3, 9, 11),   # bottleneck 1x1, Cout % 128 == 0
+    (1, 2, 64, 128, 3, 10, 13),    # 1x1/2 shortcut
+    (3, 1, 512, 512, 3, 4, 4),     # K = 4608, the largest sums
+    (3, 1, 64, 64, 2, 64, 80),     # the halo path, several waves
+    (3, 1, 256, 256, 2, 40, 48),   # 128-channel stages, several waves
 ])
-@pytest.mark.parametrize("relu", [False, True])
-def test_int8_conv_kernel_matches_plain(cuda, k, stride, cin, cout, h, w,
-                                        relu):
+@pytest.mark.parametrize("relu,requant", [(False, False), (True, False),
+                                          (True, True), (False, True)])
+def test_int8_conv_kernel_matches_plain(cuda, k, stride, cin, cout, b, h, w,
+                                        relu, requant):
     """Bit for bit: the int32 sum is exact and the epilogue rounds as the
-    plain version does; +-127 extremes included."""
+    plain version does, f32 out and, with ``out_scale``, int8 out (a true
+    division, round half to even); +-127 extremes included."""
     rng = np.random.RandomState(k * 1000 + cin + stride)
-    xq = torch.from_numpy(rng.randint(-127, 128, (3, h, w, cin))
+    xq = torch.from_numpy(rng.randint(-127, 128, (b, h, w, cin))
                           .astype(np.int8))
     xq[0] = 127
     wt = rng.randint(-127, 128, (k, k, cin, cout)).astype(np.int8)
@@ -705,11 +713,14 @@ def test_int8_conv_kernel_matches_plain(cuda, k, stride, cin, cout, h, w,
     bias = torch.from_numpy(rng.randn(cout).astype(np.float32))
     args = [t.to(cuda) for t in (xq, packed)] + [k, k] \
         + [t.to(cuda) for t in (scale, bias)] + [stride, relu]
+    if requant:
+        args.append(torch.tensor(0.0123, device=cuda))
     before = int8_conv.launches
     got = int8_conv(*args)
     torch.cuda.synchronize()
     assert int8_conv.launches == before + 1
     want = int8_conv_plain(*args)
-    assert got.shape == want.shape == (3, -(-h // stride), -(-w // stride),
+    assert got.shape == want.shape == (b, -(-h // stride), -(-w // stride),
                                        cout)
+    assert got.dtype == (torch.int8 if requant else torch.float32)
     assert torch.equal(got, want)

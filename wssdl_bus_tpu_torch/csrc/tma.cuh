@@ -1,8 +1,8 @@
 // Tensor Memory Accelerator (TMA) helpers: the host-side tensor-map encoder
-// and the device-side 4-D tile load that csrc/conv2_pool.cu (the stem
-// tail's halo tiles) and csrc/roi_pool.cu (the forward's channel slice of
-// the feature map) share, with the mbarrier operations a TMA load completes
-// on.  (csrc/vgg_stem.cuh and csrc/nms.cu keep their own mbarrier helpers:
+// and the device-side 2-D, 4-D and 5-D tile loads that csrc/conv2_pool.cu (the
+// stem tail's halo tiles), csrc/roi_pool.cu (the forward's channel slice of
+// the feature map) and csrc/int8_conv.cu (the conv's input and weight
+// tiles) share, with the mbarrier operations a TMA load completes on.  (csrc/vgg_stem.cuh and csrc/nms.cu keep their own mbarrier helpers:
 // tools/torch_stem_variants.py and tools/torch_nms_walk_probe.py build
 // private copies of those files alone.)
 //
@@ -38,6 +38,11 @@ __device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar,
                : "memory");
 }
 
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
+               : "memory");
+}
+
 // wait until the phase of parity `parity` has completed
 __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   uint32_t done;
@@ -64,6 +69,30 @@ __device__ __forceinline__ void load_4d(uint32_t dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
       "r"(c3), "r"(bar)
+      : "memory");
+}
+
+// One TMA request: the box of the 5-D tensor `map` at (c0, ..., c4), as
+// load_4d.
+__device__ __forceinline__ void load_5d(uint32_t dst, const CUtensorMap* map,
+                                        uint32_t bar, int c0, int c1, int c2,
+                                        int c3, int c4) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5, %6}], [%7];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3), "r"(c4), "r"(bar)
+      : "memory");
+}
+
+// One TMA request: the box of the 2-D tensor `map` at (c0, c1), as
+// load_4d.
+__device__ __forceinline__ void load_2d(uint32_t dst, const CUtensorMap* map,
+                                        uint32_t bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3}], [%4];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
       : "memory");
 }
 

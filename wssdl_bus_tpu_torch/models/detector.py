@@ -68,13 +68,14 @@ class TrunkRPN(nn.Module):
             feat = self.backbone(x)
         return self.heads(feat)
 
-    def heads(self, feat):
+    def heads(self, feat, f32: bool = False):
         """The RPN convs over the NCHW (channels_last) feature map ->
         (feat, rpn_cls_score, rpn_bbox_pred), each NHWC f32 and contiguous;
-        also the tail of the int8 trunk (``models/quantize.py``)."""
-        rpn = self.rpn_conv(feat)
-        score = self.rpn_cls_score(rpn)
-        bbox = self.rpn_bbox_pred(rpn)
+        also the tail of the int8 trunk (``models/quantize.py``), which
+        runs them in f32 (``f32``) whatever the compute dtype."""
+        rpn = self.rpn_conv(feat, f32)
+        score = self.rpn_cls_score(rpn, f32)
+        bbox = self.rpn_bbox_pred(rpn, f32)
         return tuple(t.permute(0, 2, 3, 1).float().contiguous()
                      for t in (feat, score, bbox))
 

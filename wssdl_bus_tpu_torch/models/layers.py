@@ -190,9 +190,11 @@ class ConvBlock(nn.Module):
         self.relu = relu
         self.compute_dtype = None
 
-    def forward(self, x):
+    def forward(self, x, f32: bool = False):
+        """``f32``: compute in f32 whatever ``compute_dtype`` (the int8
+        path's RPN convs, ``models/quantize.py``)."""
         weight, bias = self.conv.weight, self.conv.bias
-        dt = self.compute_dtype
+        dt = None if f32 else self.compute_dtype
         if dt is not None:
             # flax's Conv(dtype=dt): input, kernel and bias in dt, the bias
             # added after the conv in dt
@@ -227,10 +229,12 @@ class Fc(nn.Module):
         self.relu = relu
         self.compute_dtype = None
 
-    def forward(self, x):
+    def forward(self, x, f32: bool = False):
+        """``f32``: compute in f32 whatever ``compute_dtype`` (the int8
+        path's ResNet dense layers, ``models/quantize.py``)."""
         if x.ndim == 4:
             x = x.reshape(x.shape[0], -1)
-        dt = self.compute_dtype
+        dt = None if f32 else self.compute_dtype
         if dt is None:
             y = self.dense(x)
         else:

@@ -13,16 +13,37 @@ everything after it is f32, and the chain requantizes into the next
 layer's scale.  The RPN convs, the VGG16 fc head and the ResNet head's
 dense layers are not quantized: the int8 path runs the model's own modules
 for them (``TrunkRPN.heads``, ``cls_score`` / ``bbox_pred``), so the
-quantized tree holds only the int8 layers and the unfolded norms.  All
-detection geometry stays f32.  ResNet folds the serving-mode BatchRenorm of each conv into its
-dequant scale and bias; the standalone preact norms stay f32 affines;
-GroupNorm (data-dependent at serving time) is rejected.
+quantized tree holds only the int8 layers and the unfolded norms.  As in
+the JAX package, the RPN convs and the ResNet dense layers run in f32 from
+the f32 weights whatever the model's compute dtype; the VGG16 fc head
+follows it.  All detection geometry stays f32.  ResNet folds the
+serving-mode BatchRenorm of each conv into its dequant scale and bias;
+the standalone preact norms stay f32 affines; GroupNorm (data-dependent
+at serving time) is rejected.
 
 The int8 conv is the CUDA kernel ``csrc/int8_conv.cu``
 (``ops/int8_conv_cuda.py:int8_conv``; its plain version
 ``ops/int8_conv.py:int8_conv_plain`` on CPU tensors, or everywhere for a
-``plain_ops`` engine); the quantize step and the max-pools are PyTorch
-elementwise ops, as they are XLA's in the JAX package.  Activations are
+``plain_ops`` engine).  Where a conv's output reaches the next int8 conv
+only, through nothing but max-pools, the kernel runs that conv's quantize
+step in its epilogue (``out_scale``: the next layer's ``in_scale``) and
+hands it int8; a max-pool commutes with ``clamp(round(. / s))``, which is
+monotone, so the step's result is the JAX package's bit for bit (it pools
+in f32, then quantizes).  Those int8 hand-offs:
+
+  * VGG16: conv1_1 ... conv5_2, 12 of 13 (the 2x2 pools after conv1_2,
+    conv2_2, conv3_3 and conv4_3 run on the int8 codes); conv5_3 stays f32
+    (it feeds the RPN and the ROI pool).
+  * ResNet: the conv1 of each basic block (-> conv2), conv1 and conv2 of
+    each bottleneck (-> conv2, -> conv3): 8 of 20 convs in ResNet-18, 32 of
+    53 in ResNet-50 (:func:`_walk_block`'s ``feeds``).  Every other conv
+    stays f32: conv0 (its pooled output feeds a residual add), the last
+    conv of each block and the shortcuts (residual adds), and whatever
+    goes through a preact norm.
+
+The other quantize steps (the network input, and after a preact norm or a
+residual add) and the f32 max-pool after conv0 are PyTorch elementwise
+ops, as they are XLA's in the JAX package.  Activations are
 NHWC throughout, the JAX package's layout; the quantized tree
 (``quantize_vgg_trunk`` / ``quantize_resnet``) holds tensors on the
 device the serving engine runs on, each int8 kernel packed once into the
@@ -78,8 +99,18 @@ def _conv_f32(x, weight, stride: int = 1):
 
 
 def _max_pool(x, k: int, s: int):
-    """k x k VALID max-pool at stride s of NHWC ``x``."""
-    return F.max_pool2d(x.permute(0, 3, 1, 2), k, s).permute(0, 2, 3, 1)
+    """k x k VALID max-pool at stride s of NHWC ``x``; int8 ``x`` (2x2 at
+    stride 2 only; PyTorch's CUDA max-pool takes no int8) as the maximum
+    of the row pairs, then of the column pairs, the odd last row and
+    column cropped."""
+    if x.dtype != torch.int8:
+        return F.max_pool2d(x.permute(0, 3, 1, 2), k, s).permute(0, 2, 3, 1)
+    if (k, s) != (2, 2):
+        raise ValueError(f"int8 max-pool: 2x2 at stride 2 only, not {k}/{s}")
+    h, w = x.shape[1] // 2 * 2, x.shape[2] // 2 * 2
+    x = x[:, :h, :w]
+    rows = torch.maximum(x[:, 0::2], x[:, 1::2])
+    return torch.maximum(rows[:, :, 0::2], rows[:, :, 1::2])
 
 
 def _absmax(x) -> float:
@@ -121,11 +152,16 @@ def qlayer(qkernel: np.ndarray, scale, bias, in_scale, device) -> dict:
             "in_scale": torch.as_tensor(np.float32(in_scale), **f32)}
 
 
-def _int8_layer(conv, x, layer: dict, stride: int, relu: bool):
-    """quantize -> int8 conv (+ the epilogue) of NHWC ``x``."""
-    xq = quantize(x, layer["in_scale"]).contiguous()
-    return conv(xq, layer["qkernel"], layer["k"], layer["k"], layer["scale"],
-                layer["bias"], stride, relu)
+def _int8_layer(conv, x, layer: dict, stride: int, relu: bool,
+                feeds: dict | None = None):
+    """[quantize ->] int8 conv (+ the epilogue) of NHWC ``x``: f32 ``x`` is
+    quantized into the layer's ``in_scale`` (an int8 ``x`` already is, by
+    the conv before it); with ``feeds`` (the next layer) the output is that
+    layer's int8 input."""
+    xq = x if x.dtype == torch.int8 else quantize(x, layer["in_scale"])
+    return conv(xq.contiguous(), layer["qkernel"], layer["k"], layer["k"],
+                layer["scale"], layer["bias"], stride, relu,
+                None if feeds is None else feeds["in_scale"])
 
 
 # --------------------------------------------------------------------- #
@@ -177,10 +213,10 @@ def quantize_vgg_trunk(model, act_scales: dict, device=None) -> dict:
 
 
 def _rpn(model, feat):
-    """The model's RPN convs (``TrunkRPN.heads``, eval mode) over the NHWC
-    int8 trunk's ``feat`` -> (feat, rpn_cls_score, rpn_bbox_pred), NHWC
-    f32."""
-    return model.trunk.heads(feat.contiguous().permute(0, 3, 1, 2))
+    """The model's RPN convs (``TrunkRPN.heads``, eval mode) in f32 over the
+    NHWC int8 trunk's ``feat`` -> (feat, rpn_cls_score, rpn_bbox_pred),
+    NHWC f32."""
+    return model.trunk.heads(feat.contiguous().permute(0, 3, 1, 2), f32=True)
 
 
 @torch.no_grad()
@@ -190,9 +226,11 @@ def quant_trunk_apply(model, qtrunk: dict, data, plain: bool = False):
     ``FasterRCNN.apply_trunk`` in eval mode.  ``plain``: the int8 conv's
     plain version instead of the kernel."""
     conv = _int8_conv_fn(plain)
+    layers = qtrunk["layers"]
     x = data
-    for (_, pool), layer in zip(VGG_LAYERS, qtrunk["layers"]):
-        x = _int8_layer(conv, x, layer, 1, True)
+    for (_, pool), layer, feeds in zip(VGG_LAYERS, layers,
+                                       layers[1:] + [None]):
+        x = _int8_layer(conv, x, layer, 1, True, feeds)
         if pool:
             x = _max_pool(x, 2, 2)
     return _rpn(model, x)
@@ -242,7 +280,7 @@ class _ResnetF32:
     def __init__(self, root, norm, record=None):
         self.root, self.norm, self.rec = root, norm, record
 
-    def conv(self, path, x, stride, relu):
+    def conv(self, path, x, stride, relu, feeds=None):
         if self.rec is not None:
             self.rec[path] = x.abs().max()
         blk = _module(self.root, path)
@@ -271,9 +309,12 @@ class _ResnetInt8:
         self.q, self.norm = qpart, norm
         self._conv = _int8_conv_fn(plain)
 
-    def conv(self, path, x, stride, relu):
-        return _int8_layer(self._conv, x, self.q["layers"][path], stride,
-                           relu)
+    def conv(self, path, x, stride, relu, feeds=None):
+        """``feeds``: the path of the conv that alone takes this output,
+        which is then written as its int8 input."""
+        layers = self.q["layers"]
+        return _int8_layer(self._conv, x, layers[path], stride, relu,
+                           None if feeds is None else layers[feeds])
 
     def prenorm(self, path, x):
         if self.norm == "BN":
@@ -285,7 +326,9 @@ class _ResnetInt8:
 def _walk_block(ops, x, bpath, features, stride, preact, kind):
     """``models/resnet.py:_Block`` (network.py:424-457), the shortcut
     quirk included: in "both_preact" blocks the shortcut takes the
-    normalised input, in "default" blocks the input before the preact."""
+    normalised input, in "default" blocks the input before the preact.
+    Each conv whose output only the next conv takes names it (``feeds``):
+    the int8 walk hands that conv int8."""
     c_in = x.shape[-1]
     if preact == "both_preact":
         x = ops.prenorm(f"{bpath}/preact_prev", x)
@@ -296,12 +339,15 @@ def _walk_block(ops, x, bpath, features, stride, preact, kind):
     else:
         x_ori = x
     if kind == "basic":
-        y = ops.conv(f"{bpath}/conv1", x, stride, relu=True)
+        y = ops.conv(f"{bpath}/conv1", x, stride, relu=True,
+                     feeds=f"{bpath}/conv2")
         y = ops.conv(f"{bpath}/conv2", y, 1, relu=False)
         c_out = features
     else:
-        y = ops.conv(f"{bpath}/conv1", x, 1, relu=True)
-        y = ops.conv(f"{bpath}/conv2", y, stride, relu=True)
+        y = ops.conv(f"{bpath}/conv1", x, 1, relu=True,
+                     feeds=f"{bpath}/conv2")
+        y = ops.conv(f"{bpath}/conv2", y, stride, relu=True,
+                     feeds=f"{bpath}/conv3")
         y = ops.conv(f"{bpath}/conv3", y, 1, relu=False)
         c_out = features * 4
     if c_in != c_out:
@@ -486,10 +532,10 @@ def quant_resnet_trunk_apply(model, q: dict, data, plain: bool = False):
 @torch.no_grad()
 def quant_resnet_head_apply(model, q: dict, pooled, plain: bool = False):
     """int8 group3 head on [N, 7, 7, C], the mean, then the model's dense
-    layers -> (cls_score, bbox_pred), f32: the drop-in for
+    layers in f32 -> (cls_score, bbox_pred), f32: the drop-in for
     ``ResNetRCNNHead`` in eval mode."""
     x = _walk_resnet_head_group(_ResnetInt8(q["head"], model.norm, plain),
                                 pooled, model.depth)
     x = x.mean(dim=(1, 2))
     head = model.head
-    return head.cls_score(x).float(), head.bbox_pred(x).float()
+    return head.cls_score(x, f32=True), head.bbox_pred(x, f32=True)

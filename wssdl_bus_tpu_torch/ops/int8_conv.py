@@ -8,7 +8,9 @@ and ``_ResnetInt8.conv``) followed by an f32 epilogue.  The port computes
 the same function, ``y = [relu](float(acc) * scale[o] + bias[o])`` with
 ``acc = sum xq * wq`` over the taps and input channels, in one kernel
 (``csrc/int8_conv.cu``, wrapper ``ops/int8_conv_cuda.py:int8_conv``);
-PyTorch has no int8 convolution that returns the int32 accumulator.
+PyTorch has no int8 convolution that returns the int32 accumulator.  Given
+the next layer's input scale ``out_scale``, the kernel also runs that
+layer's quantize step, :func:`quantize` of ``y``, and writes int8.
 
 Layouts: activations NHWC (``xq`` int8, the output f32), TF "SAME"
 padding (``models/layers.py:same_pads``, asymmetric at stride 2).  The
@@ -22,8 +24,9 @@ float64 convolution of the int8 values, a sum over the taps of float64
 matrix products, which is exact in any order (every product is below 2^14
 and every sum below 127^2 * 4608 < 2^27, far inside float64's 2^53), then
 runs the epilogue as two roundings, a multiply and then an add, as the
-kernel does (its epilogue uses round-to-nearest intrinsics): the kernel
-equals it bit for bit.
+kernel does (its epilogue uses round-to-nearest intrinsics), and with
+``out_scale`` the quantize step (a true division, round half to even, as
+the kernel's ``__fdiv_rn`` / ``rintf``): the kernel equals it bit for bit.
 """
 
 from __future__ import annotations
@@ -33,7 +36,7 @@ import torch.nn.functional as F
 
 from wssdl_bus_tpu_torch.models.layers import same_pads
 
-K_STEP = 64      # csrc/int8_conv.cu: the K depth of one shared-memory tile
+K_STEP = 64      # csrc/int8_conv.cu: the K bytes of one shared-memory stage
 
 
 def pack_weight(w_hwio: torch.Tensor) -> torch.Tensor:
@@ -93,12 +96,15 @@ def epilogue(acc: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
 
 def int8_conv_plain(xq: torch.Tensor, packed: torch.Tensor, kh: int,
                     kw: int, scale: torch.Tensor, bias: torch.Tensor,
-                    stride: int = 1, relu: bool = False) -> torch.Tensor:
+                    stride: int = 1, relu: bool = False,
+                    out_scale: torch.Tensor | None = None) -> torch.Tensor:
     """The plain version of ``ops/int8_conv_cuda.py:int8_conv``: xq int8
     NHWC [B, H, W, Cin], ``packed`` from :func:`pack_weight`, scale / bias
-    f32 [Cout] -> f32 NHWC [B, ceil(H/s), ceil(W/s), Cout]."""
-    return epilogue(int8_conv_acc_plain(xq, packed, kh, kw, stride), scale,
-                    bias, relu)
+    f32 [Cout] -> f32 NHWC [B, ceil(H/s), ceil(W/s), Cout]; with
+    ``out_scale`` (a 0-d f32 tensor) that output's :func:`quantize`, int8."""
+    y = epilogue(int8_conv_acc_plain(xq, packed, kh, kw, stride), scale,
+                 bias, relu)
+    return y if out_scale is None else quantize(y, out_scale)
 
 
 def quantize(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:

@@ -364,8 +364,9 @@ class Engine:
         """:meth:`inference_step` with the int8 model ``qtrunk``: the same
         outputs (rois5, valid, cls_score, cls_prob, bbox_pred).  The int8
         convs run in the kernel (their plain version for ``plain_ops`` or on
-        the CPU); the RPN convs and the dense layers are the model's own,
-        in its compute dtype."""
+        the CPU); the RPN convs and the dense layers are the model's own:
+        the RPN convs and ResNet's dense layers in f32, VGG16's fc head in
+        the model's compute dtype, as in the JAX package."""
         from wssdl_bus_tpu_torch.models import quantize as Q
 
         self.model.eval()
