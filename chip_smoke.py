@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's serving and training paths on one NVIDIA GPU:
 VGG16 (phases 3-12), the ResNet detectors (phase 13), bf16 compute and int8
-serving (phase 14).
+serving (phase 14), and the serving surface: artifacts, the HTTP server and
+the export / predict CLIs (phase 15).
 
     python3 chip_smoke.py [--profile]
 
@@ -156,6 +157,30 @@ directory without the port beside it, phase 0 fails so):
      parameters) timed beside f32; ``main.test --int8`` and ``--bf16`` at
      batch 8 over the evaluation imdb and ``main.train --bf16`` for 3
      iterations (logs ``chiprun_out/precision_*.log``);
+ 15. (after phase 14; TF32 off but where timed) the serving surface at full
+     width from the seeded He weights: ``serve.export_serving`` of VGG16
+     f32 and int8 (calibrated on the requests' batch-8 blob) at batch sizes
+     (1, 8) and of ResNet-18 BN at (8,), ``load_serving`` on the card (the
+     int8 artifact's replaced parameters NaN, its file < 0.7x the f32
+     one); each driven through ``ServingModel.detect`` (3 single requests,
+     the batch of 8, the first 3 padded to 8) with the counters around it
+     (per device step one NMS, one pool forward, #2 or #3, and 13 #8 for
+     int8), its batch-8 detections equal to the live engine's
+     (``im_detect_batch``; for int8 the live ``QuantServingEngine``) bit
+     for bit, padded requests against the unpadded live run (the same
+     kept proposals and classes, scores and boxes within ``PAD_ATOL``:
+     another batch size may take another cuDNN algorithm), the int8
+     artifact's step equal to ``plain_ops=True``, ms/image at batch 1 and
+     8 at PyTorch's defaults; the HTTP server (``serve.server.serve`` on a
+     loopback port in a thread) over the VGG16 artifact: 64 PNG requests
+     (450 x 600 / 480 x 640) from 8 client threads, every response 200
+     and the library path's report (classes equal, values within the
+     padding tolerances), one NMS and one pool forward per device step;
+     the same load at PyTorch's defaults for ``/metrics``' latency
+     percentiles and images per second, then 16 sequential single
+     requests; ``main.export`` (with and without ``--int8``) from phase
+     10's snapshot and ``main.predict`` on 3 PNGs from the artifact, the
+     snapshot and the int8 artifact (logs ``chiprun_out/serve_*.log``);
  12. a ``{"kernels": [...]}`` line (#3 as ``roi_pool_grouped``, its
      launches from the ResNet paths; the int8 conv as ``int8_conv``, its
      numbers those of the VGG16 batch-8 int8 step), then the last line
@@ -3186,6 +3211,473 @@ def run_precision(st, ev, tmpdir, requests, tcanvas, joint, out_dir,
     return out
 
 
+# --------------------------------------------------------------------- #
+# phase 15: the serving surface
+# --------------------------------------------------------------------- #
+HTTP_REQUESTS = 64        # concurrent PNG requests to the HTTP server
+HTTP_CLIENTS = 8
+HTTP_SEQUENTIAL = 16      # single requests one after another (batch 1)
+# a padded batch against the same images served unpadded: another batch
+# size may take another cuDNN algorithm (f32 reassociation, TF32 off), so
+# values are held to f32 drift: class probabilities as the CPU parity
+# tests hold them, 1e-5 for VGG16 (tests/test_torch_engine.py) and 1e-4
+# for ResNet (tests/test_torch_resnet_engine.py); boxes 2e-2 px for VGG16
+# (measured 2.2e-3 on the H100) and 0.5 px for ResNet-18 BN, measured
+# there at 0.104-0.213 px: its He-weighted head regresses large box
+# deltas, which the decode passes through exp, so a delta's drift grows
+# in pixels (the scores moved 7.5e-6-1.4e-5)
+PAD_ATOL = {"VGGnet": (1e-5, 2e-2), "Resnet": (1e-4, 0.5)}  # score, px
+
+
+def _report_err(got, want, what: str) -> dict:
+    """Two reports (``report_detections`` entries) of one image: per class
+    the same number of entries, each paired with the other report's
+    nearest box of its class, one to one (a report is ordered by score,
+    and scores saturated at 1.0 tie, so two runs may order them apart);
+    -> the largest score and box differences of the pairs."""
+    err = {"score": 0.0, "box": 0.0}
+    for cls in sorted({d["class"] for d in got + want}):
+        g = [d for d in got if d["class"] == cls]
+        w = [d for d in want if d["class"] == cls]
+        _check(len(g) == len(w), f"{what}: {len(g)} {cls} detections, "
+               f"the other report {len(w)}")
+        dist = np.abs(np.array([d["box"] for d in g])[:, None]
+                      - np.array([d["box"] for d in w])[None]).max(-1)
+        pair = dist.argmin(1)
+        _check(len(set(pair.tolist())) == len(g),
+               f"{what}: the {cls} boxes do not pair one to one")
+        err["box"] = max(err["box"], float(dist[np.arange(len(g)),
+                                                pair].max()))
+        err["score"] = max(err["score"], float(np.abs(np.subtract(
+            [d["score"] for d in g], [w[j]["score"] for j in pair])).max()))
+    return err
+
+
+def _within(errs, backbone: str, what: str) -> dict:
+    """The largest of per-image differences ``errs``, held to
+    PAD_ATOL[backbone]."""
+    err = {k: max([e[k] for e in errs], default=0.0)
+           for k in ("score", "box")}
+    limits = PAD_ATOL[backbone]
+    _check(err["score"] <= limits[0] and err["box"] <= limits[1],
+           f"{what}: scores {err['score']:.3g} / boxes {err['box']:.3g} px "
+           f"apart (limits {limits[0]} / {limits[1]})")
+    return err
+
+
+def _same_detections(got, want, cfg, what: str,
+                     backbone: str = "VGGnet") -> dict:
+    """Per image: the same kept proposals (rows) and report classes, scores
+    and boxes within PAD_ATOL[backbone]; -> the largest differences."""
+    from wssdl_bus_tpu_torch.serve import report_detections
+
+    _check(len(got) == len(want), f"{what}: {len(got)} results for "
+           f"{len(want)} images")
+    errs = []
+    for k, ((gs, gb), (ws, wb)) in enumerate(zip(got, want)):
+        _check(gs.shape == ws.shape and gb.shape == wb.shape,
+               f"{what}: image {k} keeps {gs.shape[0]} proposals, "
+               f"unpadded {ws.shape[0]}")
+        if len(gs):
+            errs.append({"score": float(np.abs(gs - ws).max()),
+                         "box": float(np.abs(gb - wb).max())})
+        _report_err(report_detections(gs, gb, cfg)[0],
+                    report_detections(ws, wb, cfg)[0], f"{what}: image {k}")
+    return _within(errs, backbone, what)
+
+
+def _equal_detections(got, want, what: str):
+    _check(len(got) == len(want) and all(
+        np.array_equal(gs, ws) and np.array_equal(gb, wb)
+        for (gs, gb), (ws, wb) in zip(got, want)),
+        f"{what}: detections differ")
+
+
+def check_artifact(tag, served, live, requests, net, pool, n_int8,
+                   smi) -> dict:
+    """One loaded artifact on its main path, the counters around it:
+    BATCH_1_REQUESTS single requests, the 8 requests, and the first 3
+    padded to the exported batch (per device step one NMS, one pool
+    forward ``pool``, ``n_int8`` int8 convs); then (TF32 off) its
+    detections against the live engine ``live`` on the same weights: equal
+    where the batch is the same, within the padding tolerances where the
+    artifact pads; ms/image at PyTorch's defaults."""
+    import torch
+
+    from wssdl_bus_tpu_torch.evaluate.detect import im_detect_batch
+
+    canvas = served.canvas_hw
+    reset_counts()
+    singles = [served.detect([r])[0] for r in requests[:BATCH_1_REQUESTS]]
+    batch = served.detect(requests)
+    three = served.detect(requests[:3])
+    torch.cuda.synchronize()
+    counts = read_counts()
+    steps = BATCH_1_REQUESTS + 2
+    want = {"nms_keep": steps, pool: steps}
+    if n_int8:
+        want["int8_conv"] = n_int8 * steps
+    check_counts(counts, want, f"artifact {tag}")
+    paths = check_pool_paths(counts, f"artifact_{tag}")
+    for scores, boxes in singles + batch:
+        _check(scores.ndim == 2 and scores.shape[1] == 3
+               and boxes.shape == (scores.shape[0], 12)
+               and np.isfinite(scores).all() and np.isfinite(boxes).all(),
+               f"artifact {tag}: outputs {scores.shape} {boxes.shape}")
+    _equal_detections(batch, im_detect_batch(live, requests, net, canvas),
+                      f"artifact {tag} batch 8 vs the live engine")
+    live_singles = [im_detect_batch(live, [r], net, canvas)[0]
+                    for r in requests[:BATCH_1_REQUESTS]]
+    pad = {}
+    backbone = served.meta["backbone"]
+    if 1 in served.batch_sizes:
+        _equal_detections(singles, live_singles,
+                          f"artifact {tag} batch 1 vs the live engine")
+    else:
+        pad["singles"] = _same_detections(
+            singles, live_singles, live.cfg, f"artifact {tag}: 1 request "
+            f"padded to {min(served.batch_sizes)} vs the live batch 1",
+            backbone)
+    pad["three"] = _same_detections(
+        three, im_detect_batch(live, requests[:3], net, canvas), live.cfg,
+        f"artifact {tag}: 3 requests padded to 8 vs the live batch 3",
+        backbone)
+    with pytorch_defaults():   # at an exported size detect() is this path
+        perf = {b: time_serving(served, requests, net, b)
+                for b in served.batch_sizes}
+    print(f"[artifact] {tag}: batches {served.batch_sizes}, "
+          f"{steps} device steps, launches {counts} ({pool} by path "
+          f"{paths[pool]}); batch 8 == the live engine bit for bit"
+          + (", batch 1 too" if 1 in served.batch_sizes else "")
+          + f"; padded vs unpadded (keep sets and classes equal): "
+          + ", ".join(f"{k} scores {v['score']:.3g} boxes {v['box']:.3g} px"
+                      for k, v in pad.items())
+          + "; " + ", ".join(
+              f"batch {b} {t['ms_per_image']:.3f} ms/image end to end = "
+              f"prep {t['prep_ms_per_image']:.3f} + device step "
+              f"{t['device_step_ms_per_image']:.3f} + decode/report "
+              f"{t['decode_report_ms_per_image']:.3f}"
+              for b, t in perf.items()) + f"; {smi}", flush=True)
+    return {"launches": counts, "perf": perf, "padded_vs_unpadded": pad}
+
+
+def _png(im) -> bytes:
+    import io
+
+    from PIL import Image
+
+    buf = io.BytesIO()
+    Image.fromarray(im).save(buf, format="PNG")
+    return buf.getvalue()
+
+
+def _post(port: int, body: bytes):
+    """-> (status, JSON, seconds) of one POST /detect on localhost."""
+    import http.client
+
+    t0 = time.perf_counter()
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    try:
+        conn.request("POST", "/detect", body=body)
+        r = conn.getresponse()
+        out = r.status, json.loads(r.read().decode())
+    finally:
+        conn.close()
+    return out + (time.perf_counter() - t0,)
+
+
+def _get(port: int, path: str) -> dict:
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    try:
+        conn.request("GET", path)
+        r = conn.getresponse()
+        _check(r.status == 200, f"GET {path}: {r.status}")
+        return json.loads(r.read().decode())
+    finally:
+        conn.close()
+
+
+def _hammer(port: int, bodies) -> tuple:
+    """POST every body from HTTP_CLIENTS threads, each taking every
+    HTTP_CLIENTS-th; -> (responses in order, wall seconds)."""
+    import threading
+
+    out = [None] * len(bodies)
+
+    def client(c):
+        for i in range(c, len(bodies), HTTP_CLIENTS):
+            out[i] = _post(port, bodies[i])
+
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(HTTP_CLIENTS)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.perf_counter() - t0
+    _check(not any(t.is_alive() for t in threads), "an HTTP client hung")
+    return out, wall
+
+
+def http_serving(art, live, net, smi) -> dict:
+    """``serve(art, port=0)`` on the card in a thread: HTTP_REQUESTS PNG
+    requests from HTTP_CLIENTS threads (TF32 off), every response 200 and
+    the library path's report for its image (classes equal, scores and
+    boxes within the padding tolerances: the batcher coalesces requests
+    into batch 1 and padded batch-8 steps); one NMS and one pool forward
+    per device step; the same load again at PyTorch's defaults for
+    ``/metrics``' latency percentiles and images per second; then
+    HTTP_SEQUENTIAL single requests one after another."""
+    import threading
+
+    import torch
+
+    from wssdl_bus_tpu_torch.evaluate.detect import im_detect_batch
+    from wssdl_bus_tpu_torch.serve import report_detections
+    from wssdl_bus_tpu_torch.serve.server import ServerMetrics, serve
+
+    images = make_requests(seed=15, n=HTTP_REQUESTS)
+    bodies = [_png(im) for im in images]
+    httpd = serve(art, port=0)
+    port = httpd.server_port
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    service = httpd.service
+    out = {"launches": {}}
+    try:
+        health = _get(port, "/healthz")
+        _check(health["device"].startswith("cuda") and health["batch_sizes"]
+               == [1, BATCH], f"/healthz: {health}")
+        reset_counts()
+        responses, _ = _hammer(port, bodies)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        steps = service.batcher.total_steps
+        check_counts(counts, {"nms_keep": steps, "roi_pool_fc": steps},
+                     "http")
+        check_pool_paths(counts, "http")
+        out["launches"]["http"] = counts
+        hist = dict(service.metrics.snapshot(service.batcher)[
+            "images_per_step_histogram"])
+        errs, n_dets = [], 0
+        for k, (im, (code, obj, _)) in enumerate(zip(images, responses)):
+            _check(code == 200, f"http request {k}: {code} {obj}")
+            _check(obj["image_hw"] == list(im.shape),
+                   f"http request {k}: image_hw {obj['image_hw']}")
+            (scores, boxes), = im_detect_batch(live, [im], net,
+                                               live.canvas_hw)
+            want, _ = report_detections(scores, boxes, live.cfg)
+            errs.append(_report_err(obj["detections"], want,
+                                    f"http request {k} vs the library "
+                                    "path"))
+            n_dets += len(want)
+        err = _within(errs, "VGGnet", "http vs the library path")
+        print(f"[http] checked run (TF32 off): {len(responses)} requests "
+              f"from {HTTP_CLIENTS} clients, all 200, each the library "
+              f"path's report ({n_dets} detections; scores within "
+              f"{err['score']:.3g}, boxes {err['box']:.3g} px); {steps} "
+              f"device steps {hist}; launches {counts}", flush=True)
+
+        with pytorch_defaults():
+            service.metrics = ServerMetrics()
+            b = service.batcher
+            b.step_sizes.clear()
+            b.total_steps = b.failed_steps = 0
+            reset_counts()
+            responses, wall = _hammer(port, bodies)
+            torch.cuda.synchronize()
+            counts = read_counts()
+            _check(all(r[0] == 200 for r in responses),
+                   "http timed run: a request failed")
+            metrics = _get(port, "/metrics")
+            steps = metrics["device_steps"]
+            check_counts(counts, {"nms_keep": steps, "roi_pool_fc": steps},
+                         "http timed run")
+            check_pool_paths(counts, "http_defaults")
+            out["launches"]["http_defaults"] = counts
+            seq = [_post(port, bodies[i])[2]
+                   for i in range(HTTP_SEQUENTIAL)]
+        lat = metrics["latency_s"]
+        out.update(
+            metrics=metrics, images_per_s=len(bodies) / wall,
+            wall_s=wall, checked_err=err, checked_histogram=hist,
+            sequential_ms={"mean": 1e3 * float(np.mean(seq)),
+                           "p50": 1e3 * float(np.median(seq)),
+                           "max": 1e3 * max(seq)})
+        sq = out["sequential_ms"]
+        print(f"[http] {len(bodies)} requests from {HTTP_CLIENTS} clients "
+              f"(PyTorch defaults): latency p50 {lat['p50'] * 1e3:.1f} / "
+              f"p90 {lat['p90'] * 1e3:.1f} / p99 {lat['p99'] * 1e3:.1f} / "
+              f"max {lat['max'] * 1e3:.1f} ms (n {lat['n']}), "
+              f"{out['images_per_s']:.1f} images/s, images per step "
+              f"{metrics['images_per_step_histogram']}, "
+              f"{metrics['device_steps']} device steps; {HTTP_SEQUENTIAL} "
+              f"sequential single requests: mean {sq['mean']:.1f} / p50 "
+              f"{sq['p50']:.1f} / max {sq['max']:.1f} ms; {smi}",
+              flush=True)
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        service.batcher.close()
+        thread.join(timeout=60)
+    _check(not thread.is_alive(), "the HTTP server thread did not stop")
+    return out
+
+
+def serving_cli(tmpdir, ev, requests, out_dir, smi) -> dict:
+    """``main.export`` from phase 10's snapshot of the He weights (batch
+    sizes 1 and 8, canvas from the evaluation imdb), with and without
+    ``--int8`` (calibrated on its 8 first images): no kernel launches;
+    ``main.predict`` on 3 PNG requests from the f32 artifact (padded to 8)
+    and from the snapshot (``--batch 3``): the same classes, scores and
+    boxes within the padding tolerances; and from the int8 artifact
+    (13 int8 convs a step); each predict one NMS and one pool forward."""
+    import torch
+
+    from wssdl_bus_tpu_torch.main import export as main_export
+    from wssdl_bus_tpu_torch.main import predict as main_predict
+
+    out = {"launches": {}}
+    arts = {}
+    for tag, extra in (("f32", []), ("int8", ["--int8", "--calib_images",
+                                             str(BATCH)])):
+        arts[tag] = os.path.join(tmpdir, f"cli_artifact_{tag}")
+        reset_counts()
+        with open(os.path.join(out_dir, f"serve_export_{tag}.log"),
+                  "w") as f, contextlib.redirect_stdout(f):
+            meta = main_export.main(
+                ["--model", ev["snapshot"], "--out", arts[tag],
+                 "--batch_sizes", f"1,{BATCH}", "--imdb_test", "bus_test",
+                 "--data_dir", ev["data"], "--network", "VGGnet_test"]
+                + extra)
+        torch.cuda.synchronize()
+        check_counts(read_counts(), {}, f"main.export {tag}")
+        _check(meta["batch_sizes"] == [1, BATCH]
+               and meta["quantized"] == (tag == "int8")
+               and meta["platform"] == "cuda",
+               f"main.export {tag}: meta {meta}")
+        out[f"export_{tag}_bytes"] = os.path.getsize(
+            os.path.join(arts[tag], "variables.pt"))
+    _check(out["export_int8_bytes"] < 0.7 * out["export_f32_bytes"],
+           f"int8 artifact {out['export_int8_bytes']} bytes, f32 "
+           f"{out['export_f32_bytes']}")
+    pngs = []
+    for k, im in enumerate(requests[:3]):
+        pngs.append(os.path.join(tmpdir, f"request_{k}.png"))
+        with open(pngs[-1], "wb") as f:
+            f.write(_png(im))
+    reports = {}
+    for tag, args, n_int8 in (
+            ("artifact", ["--artifact", arts["f32"]], 0),
+            ("model", ["--model", ev["snapshot"], "--network", "VGGnet_test",
+                       "--batch", "3"], 0),
+            ("artifact_int8", ["--artifact", arts["int8"]], 13)):
+        dst = os.path.join(tmpdir, f"predict_{tag}")
+        reset_counts()
+        with open(os.path.join(out_dir, f"serve_predict_{tag}.log"),
+                  "w") as f, contextlib.redirect_stdout(f):
+            reports[tag] = main_predict.main(pngs + ["--out", dst, "--vis",
+                                                     *args])
+        torch.cuda.synchronize()
+        counts = read_counts()
+        check_counts(counts, {"nms_keep": 1, "roi_pool_fc": 1,
+                              "int8_conv": n_int8}, f"main.predict {tag}")
+        check_pool_paths(counts, f"cli_predict_{tag}")
+        out["launches"][f"cli_predict_{tag}"] = counts
+        with open(os.path.join(dst, "predictions.json")) as f:
+            _check(json.load(f) == reports[tag],
+                   f"main.predict {tag}: predictions.json differs")
+        _check(sorted(os.listdir(dst)) == sorted(
+            ["predictions.json"] + [f"request_{k}_pred.png"
+                                    for k in range(3)]),
+               f"main.predict {tag}: files {os.listdir(dst)}")
+    err = _within([_report_err(a["detections"], m["detections"],
+                               f"main.predict {a['image']}: --artifact vs "
+                               "--model")
+                   for a, m in zip(reports["artifact"], reports["model"])],
+                  "VGGnet", "main.predict --artifact vs --model")
+    out["artifact_vs_model"] = err
+    n = {t: sum(len(e["detections"]) for e in r) for t, r in reports.items()}
+    print(f"[serve-cli] main.export f32 {out['export_f32_bytes']} bytes, "
+          f"--int8 {out['export_int8_bytes']} bytes (no launches); "
+          f"main.predict on 3 PNGs: --artifact (padded to 8) and --model "
+          f"(batch 3) report the same classes (scores {err['score']:.3g}, "
+          f"boxes {err['box']:.3g} px apart), detections {n}; launches "
+          f"{out['launches']}; {smi}", flush=True)
+    return out
+
+
+def run_serving_surface(st, ev, tmpdir, requests, out_dir, smi) -> dict:
+    """Phase 15 (after phase 14; TF32 off but where timed): artifacts of
+    VGG16 f32 and int8 at batches (1, 8) and of ResNet-18 BN at (8,) from
+    the seeded He weights, exported and loaded back on the card and driven
+    on their main paths; the int8 artifact through #8 equal to
+    ``plain_ops=True``; the HTTP server over the VGG16 artifact; the
+    export and predict CLIs."""
+    import torch
+
+    from wssdl_bus_tpu_torch.models.quantize import (QuantServingEngine,
+                                                    replaced_state_keys)
+    from wssdl_bus_tpu_torch.serve import export_serving, load_serving
+    from wssdl_bus_tpu_torch.train.engine import Engine
+
+    t0 = time.perf_counter()
+    cfg, canvas = st["cfg"], st["canvas"]
+    net = "VGGnet_test"
+    out = {"launches": {}, "artifacts": {}}
+    eng = Engine(build_model("cuda", 0), cfg, canvas)
+    blob, infos = _packed(eng, requests, net)
+    arts = {t: os.path.join(tmpdir, f"artifact_{t}")
+            for t in ("vgg16", "int8", "resnet18_bn")}
+    export_serving(eng, arts["vgg16"], net, batch_sizes=(1, BATCH))
+    export_serving(eng, arts["int8"], net, batch_sizes=(1, BATCH),
+                   calib_batches=[blob])
+    reng = Engine(resnet_model(RESNET_NET["test"], 18, "BN"), cfg, canvas)
+    export_serving(reng, arts["resnet18_bn"], RESNET_NET["test"],
+                   batch_sizes=(BATCH,))
+    served = {t: load_serving(a) for t, a in arts.items()}
+    sizes = {t: os.path.getsize(os.path.join(a, "variables.pt"))
+             for t, a in arts.items()}
+    _check(sizes["int8"] < 0.7 * sizes["vgg16"], f"artifact sizes {sizes}")
+    qserved = served["int8"].engine
+    qmodel = qserved._eng.model
+    nan = replaced_state_keys(qmodel)
+    _check(nan and all(torch.isnan(v).all() for k, v in
+                       qmodel.state_dict().items() if k in nan),
+           "int8 artifact: the replaced parameters are not NaN")
+    live_q = QuantServingEngine(eng, eng.quantize_for_serving([blob]))
+    for tag, live, pool, n_int8, name in (
+            ("vgg16", eng, "roi_pool_fc", 0, net),
+            ("int8", live_q, "roi_pool_fc", 13, net),
+            ("resnet18_bn", reng, "roi_pool_grouped", 0,
+             RESNET_NET["test"])):
+        r = check_artifact(tag, served[tag], live, requests, name, pool,
+                           n_int8, smi)
+        out["launches"][f"artifact_{tag}"] = r.pop("launches")
+        out["artifacts"][tag] = dict(r, variables_bytes=sizes[tag])
+    eng_plain = Engine(qmodel, cfg, canvas, plain_ops=True)
+    outs_k = served["int8"].inference_step(blob, infos)
+    outs_p = eng_plain.inference_step_quant(qserved._qtrunk, blob, infos)
+    for name, a, b in zip(("rois", "valid", "cls_score", "cls_prob",
+                           "bbox_pred"), outs_k, outs_p):
+        _check(torch.equal(a, b), f"int8 artifact: {name} through the "
+               "kernels differs from plain_ops=True")
+    print(f"[artifact] int8: {len(nan)} replaced tensors NaN after "
+          f"loading; the batch-8 step through #8 == plain_ops=True (all "
+          f"five outputs, TF32 off); variables.pt {sizes}", flush=True)
+    del served, live_q, eng_plain, reng
+    torch.cuda.empty_cache()
+    out["http"] = http_serving(arts["vgg16"], eng, net, smi)
+    out["launches"].update(out["http"].pop("launches"))
+    out["cli"] = serving_cli(tmpdir, ev, requests, out_dir, smi)
+    out["launches"].update(out["cli"].pop("launches"))
+    print(f"[serve] phase 15: {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3446,6 +3938,11 @@ def main() -> int:
     phase("14 (bf16 and int8)")
     precision = run_precision(rst, evaluation, tmp.name, requests, tcanvas,
                               joint, out_dir, smi, profile)
+
+    # phase 15: the serving surface (TF32 off but where timed)
+    phase("15 (serving surface)")
+    surface = run_serving_surface(rst, evaluation, tmp.name, requests,
+                                  out_dir, smi)
     tmp.cleanup()
 
     paths = {"serve": serve_launches, "train": train_launches,
@@ -3458,6 +3955,7 @@ def main() -> int:
     paths.update(training_cli.pop("launches"))
     paths.update(resnet.pop("launches"))
     paths.update(precision.pop("launches"))
+    paths.update(surface.pop("launches"))
 
     def launches(name):
         by_path = {p: c[name] for p, c in paths.items()}
@@ -3581,6 +4079,7 @@ def main() -> int:
                                    for t, r in precision["int8"].items()},
                           "bf16": precision["bf16"],
                           "cli": precision["cli"]},
+                      "serving_surface": surface,
                       "stem_paths": {STEM_PATHS[n]: {
                           k: v for k, v in r.items() if k in (
                               "serving", "training")}

@@ -1,6 +1,6 @@
-"""The port stands alone: importing it, serving a request and taking
-training steps (VGG16 and ResNet-18) load nothing of JAX or of the JAX
-package; no file of it (or
+"""The port stands alone: importing it, serving a request (also through
+the serving artifact and the HTTP server) and taking training steps (VGG16
+and ResNet-18) load nothing of JAX or of the JAX package; no file of it (or
 ``chip_smoke.py``) imports them; and its entry points never drop to the CPU
 unasked."""
 
@@ -319,6 +319,57 @@ def test_resnet_steps_load_no_jax_module(script):
     else:
         assert np.isfinite(res["losses"]).all()
     assert "wssdl_bus_tpu_torch.models.resnet" in res["modules"]
+    assert [m for m in res["modules"] if _forbidden(m)] == []
+
+
+_SERVING_SURFACE_ON_CPU = """
+import json, os, sys, tempfile
+import numpy as np
+import torch
+torch.set_num_threads(2)
+from wssdl_bus_tpu_torch.config import Config
+from wssdl_bus_tpu_torch.evaluate.detect import pack_image_batch
+from wssdl_bus_tpu_torch.models.convert import he_init_
+from wssdl_bus_tpu_torch.models.detector import build_detector
+from wssdl_bus_tpu_torch.serve import (export_serving, load_serving,
+                                       report_detections)
+from wssdl_bus_tpu_torch.serve.server import serve
+from wssdl_bus_tpu_torch.train.engine import Engine
+cfg = Config().with_overrides(["TEST.SCALES", "(64,)", "TEST.MAX_SIZE", "96",
+                               "TEST.RPN_PRE_NMS_TOP_N", "50",
+                               "TEST.RPN_POST_NMS_TOP_N", "10"])
+model = he_init_(build_detector("VGGnet_test", device="cpu"), 0, 64.0)
+eng = Engine(model, cfg, (64, 96), device="cpu")
+im = np.random.RandomState(0).randint(0, 255, (40, 60)).astype(np.uint8)
+d = tempfile.mkdtemp()
+blob, _, _ = pack_image_batch(eng, [im], "VGGnet_test", (64, 96))
+n = 0
+for name, calib in (("f32", None), ("int8", [blob])):
+    export_serving(eng, os.path.join(d, name), "VGGnet_test", (1, 2), calib)
+    served = load_serving(os.path.join(d, name), device="cpu")
+    for scores, boxes in served.detect([im, im[::-1].copy()]):
+        report_detections(scores, boxes, served.cfg)
+        n += len(scores)
+httpd = serve(os.path.join(d, "f32"), port=0, device="cpu")
+httpd.server_close()
+httpd.service.batcher.close()
+print(json.dumps({"modules": sorted(sys.modules), "n": n}))
+"""
+
+
+def test_serving_surface_loads_no_jax_module():
+    """``export_serving`` (f32 and int8), ``load_serving``,
+    ``ServingModel.detect`` and the HTTP server's ``serve`` on the CPU, in a
+    fresh process."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", _SERVING_SURFACE_ON_CPU],
+                         cwd=REPO, env=env, capture_output=True, text=True,
+                         timeout=300, check=True)
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res["n"] > 0
+    for m in ("wssdl_bus_tpu_torch.serve", "wssdl_bus_tpu_torch.serve.server",
+              "wssdl_bus_tpu_torch.models.quantize"):
+        assert m in res["modules"]
     assert [m for m in res["modules"] if _forbidden(m)] == []
 
 

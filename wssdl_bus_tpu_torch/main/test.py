@@ -46,9 +46,7 @@ def parse_args(argv=None):
                         help="evaluate the int8-quantized model instead "
                              "(VGG trunk; ResNet trunk + group3 head, norm "
                              "BN; models/quantize.py): quantized-vs-f32 "
-                             "mAP/CorLoc directly.  On the H100 not yet "
-                             "faster than f32 serving, until the int8 "
-                             "conv's epilogue requantizes (ROADMAP.md B)")
+                             "mAP/CorLoc directly")
     parser.add_argument("--calib_imdb", default=None, type=str,
                         help="imdb whose images calibrate int8 activation "
                              "ranges (default: the evaluated --imdb_test)")

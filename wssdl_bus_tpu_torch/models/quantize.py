@@ -519,6 +519,31 @@ def quantize_resnet(model, act_scales: dict, device=None) -> dict:
     }
 
 
+def replaced_state_keys(model) -> set:
+    """The keys of ``model.state_dict()`` whose tensors the int8 tree of
+    :func:`quantize_vgg_trunk` / :func:`quantize_resnet` replaces: those of
+    each conv it quantizes (its folded norm included) and of each
+    standalone norm it holds as an affine.  A serving artifact ships the
+    rest (``serve/__init__.py``)."""
+    if model.backbone == "VGGnet":
+        parts = [("trunk.backbone", model.trunk.backbone,
+                  [name for name, _ in VGG_LAYERS])]
+    else:
+        depth, norm = model.depth, model.norm
+        parts = [(prefix, root, _resnet_conv_paths(depth, part)
+                  + (_resnet_norm_paths(depth, part) if norm == "BN"
+                     else []))
+                 for prefix, root, part in (
+                     ("trunk.backbone", model.trunk.backbone, "trunk"),
+                     ("head", model.head, "head"))]
+    keys = set()
+    for prefix, root, paths in parts:
+        for path in paths:
+            sub = f"{prefix}.{path.replace('/', '.')}"
+            keys.update(f"{sub}.{k}" for k in _module(root, path).state_dict())
+    return keys
+
+
 @torch.no_grad()
 def quant_resnet_trunk_apply(model, q: dict, data, plain: bool = False):
     """int8 trunk + the model's RPN convs -> (feat, rpn_cls_score,
