@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's serving and training paths on one NVIDIA GPU:
 VGG16 (phases 3-12), the ResNet detectors (phase 13), bf16 compute and int8
-serving (phase 14), and the serving surface: artifacts, the HTTP server and
-the export / predict CLIs (phase 15).
+serving (phase 14), the serving surface: artifacts, the HTTP server and
+the export / predict CLIs (phase 15), and activation remat (phase 16).
 
     python3 chip_smoke.py [--profile]
 
@@ -130,7 +130,9 @@ directory without the port beside it, phase 0 fails so):
      statistics among the compared tensors).  ResNet-50 GN (bottleneck
      blocks, GroupNorm, C = 1024): batch-8 serving and one combined step.
      Then ``main.train --network Resnet_train`` (18,
-     BN) from the He weights as a ResNet ``.npy`` for 3 iterations over the
+     BN; no ``--remat``, so full remat, the ResNet default; its ms an
+     iteration and peak memory printed) from the He weights as a ResNet
+     ``.npy`` for 3 iterations over the
      evaluation imdb (evaluation at 3, snapshots at 2 and 3; #3 at the
      evaluation's [8, 128] ROIs against its plain version, timed beside
      its bound) and its ``--resume`` from 2 (parameters, running
@@ -181,9 +183,30 @@ directory without the port beside it, phase 0 fails so):
      requests; ``main.export`` (with and without ``--int8``) from phase
      10's snapshot and ``main.predict`` on 3 PNGs from the artifact, the
      snapshot and the int8 artifact (logs ``chiprun_out/serve_*.log``);
+ 16. (after phase 15; TF32 off, deterministic cuDNN and deterministic
+     algorithms but where timed) activation remat at full width from the
+     seeded He weights, the training canvas and the TRAIN defaults:
+     ResNet-18 BN and ResNet-50 GN under remat false / head / trunk / true,
+     ResNet-101 BN under its default (true), VGG16 under false / true.  For
+     each: one combined and one MIL step with the counters around each
+     (#1 / pool forward / #4: 1 + 2 + 2 and 1 + 1 + 1, as without remat);
+     the losses, parameters, running statistics (moved by the combined
+     step, unchanged by the MIL step) and Adam's moments equal bit for bit
+     to the model's run under its first choice (false); then 5 combined
+     steps at PyTorch's defaults: ms a step by CUDA events and the peak
+     device memory (``reset_peak_memory_stats``, ``max_memory_allocated``)
+     against the 16 GiB training limit; the peak of each model's first
+     combined step at PyTorch's defaults (before the checks, the weights
+     restored after it) and of a second deterministic combined step
+     beside the first; under full remat, 5 more steps with the
+     checkpoints preserving the RNG state (``torch.utils.checkpoint``'s
+     default) and 5 without, to time what ``preserve_rng_state=False``
+     saves;
  12. a ``{"kernels": [...]}`` line (#3 as ``roi_pool_grouped``, its
      launches from the ResNet paths; the int8 conv as ``int8_conv``, its
-     numbers those of the VGG16 batch-8 int8 step), then the last line
+     numbers those of the VGG16 batch-8 int8 step; every main path's
+     launches in ``launches_by_path``, phase 16's as
+     ``remat_<model>_<choice>`` and ``..._mil``), then the last line
      ``{"ok": true, "device": {...}}``.
 
 ``--profile`` adds torch.profiler breakdowns (device time by kernel, busy
@@ -2300,18 +2323,22 @@ RESNET_NET = {"test": "Resnet_test", "train": "Resnet_train"}
 RESNET_CLI_ITERS = 3      # snapshots at 2 and 3, one evaluation at 3
 
 
-def resnet_model(name: str, depth: int, norm, seed: int = 0, dtype=None):
+def resnet_model(name: str, depth: int, norm, seed: int = 0, dtype=None,
+                 remat=False):
     """A ResNet detector on the card with seeded He weights (``input_scale``
     1: the ResNet blob is already unit scale) and the RPN's 1x1 kernels x
     0.03, so that the decoded proposals stay near their anchors and the
     ranked RPN probabilities are not f32 ties at 1.0 (He weights through
-    the residual stack leave the RPN features at std ~10)."""
+    the residual stack leave the RPN features at std ~10); ``remat`` as
+    ``build_detector``'s (None: full remat, the ResNet default; False
+    here, so that phases 13-14 go on measuring training without remat as
+    they did before remat was ported)."""
     from wssdl_bus_tpu_torch.models.convert import (he_tree, params_from_jax,
                                                     params_to_jax)
     from wssdl_bus_tpu_torch.models.detector import build_detector
 
     model = build_detector(name, device="cuda", depth=depth, norm=norm,
-                           compute_dtype=dtype)
+                           compute_dtype=dtype, remat=remat)
     tree = he_tree(params_to_jax(model.state_dict()), seed)
     for k in ("rpn_cls_score", "rpn_bbox_pred"):
         tree["trunk"]["params"][k]["conv"]["kernel"] *= 0.03
@@ -2499,7 +2526,8 @@ def resnet_train(tag, teng, joint, weak, smi, mil: bool = True):
                f"statistics {changed[:5]}")
     with pytorch_defaults():
         step_ms = time_train_step(teng, joint[-1])
-    print(f"[resnet-train] {tag}: {len(joint)} combined steps"
+    print(f"[resnet-train] {tag} (remat {teng.model.remat!r}): "
+          f"{len(joint)} combined steps"
           f"{' + 1 MIL step' if mil else ''}; launches {counts} (expected "
           f"{want}); #3 by path {paths['roi_pool_grouped']}; losses finite "
           f"(last {np.round(losses[-1], 4).tolist()}, MIL {mil_loss}); all "
@@ -2577,8 +2605,13 @@ def resnet_cli(tmpdir, data, out_dir, smi) -> dict:
         return os.path.join(out_dir, f"resnet_{t}.log")
 
     out_a = os.path.join(tmpdir, "resnet_a")
+    torch.cuda.reset_peak_memory_stats()
     with deterministic_ops() as nondet:
         sol_a, counts_a = train_cli(main_train.main, argv(out_a), log("train"))
+    peak_a = torch.cuda.max_memory_allocated()
+    # no --remat: the ResNet default, full remat
+    _check(sol_a.eng.model.remat is True, f"main.train (ResNet) trained "
+           f"with remat {sol_a.eng.model.remat!r}, not the default True")
     with open(log("train")) as f:
         _check(f"loaded {n_arrays} pretrained arrays" in f.read(),
                f"main.train (ResNet) did not load the {n_arrays} arrays")
@@ -2616,8 +2649,13 @@ def resnet_cli(tmpdir, data, out_dir, smi) -> dict:
     _check(resume["equal"] and n_stats == 60
            and all(torch.equal(va[k], vb[k]) for k in va),
            f"ResNet --resume is not exact: {resume}")
-    print(f"[resnet-cli] main.train --network Resnet_train (18, BN): "
-          f"{n_it} iterations from the He .npy ({n_arrays} arrays loaded), "
+    rates = cli_rates(sol_a)
+    print(f"[resnet-cli] main.train --network Resnet_train (18, BN; remat "
+          f"True, the default): {n_it} iterations from the He .npy "
+          f"({n_arrays} arrays loaded), {rates['iter_ms_cuda_events']:.3f} "
+          f"ms an iteration by CUDA events (median after the first; TF32 "
+          f"off, deterministic), peak {peak_a / 2**30:.3f} GiB allocated "
+          f"(evaluation included), "
           f"launches {counts_a}; --resume from 2: launches {counts_b}; the "
           f"iteration-{n_it} snapshots' parameters, {n_stats} running "
           f"statistics, moments and test losses {resume['test_losses']} "
@@ -2657,7 +2695,7 @@ def resnet_cli(tmpdir, data, out_dir, smi) -> dict:
                          "resnet_train_cli_resume": counts_b,
                          "resnet_test_cli": counts_t},
             "eval_pool": eval_pool, "resume": resume,
-            "train_rates": cli_rates(sol_a),
+            "train_rates": rates, "train_peak_bytes": peak_a,
             "test_ms_per_image": ms, "detections": n_dets}
 
 
@@ -3082,7 +3120,8 @@ def bf16_paths(tag, make, cfg, canvas, tcanvas, joint, requests, net,
           f"{perf['bf16']['peak_bytes'] / 2**20:.1f} MiB (f32 "
           f"{perf['f32']['peak_bytes'] / 2**20:.1f}); one combined step: "
           f"launches {counts_t}, losses {np.round(losses, 4).tolist()}, "
-          f"parameters f32; {step_ms['bf16']:.3f} ms by CUDA events (f32 "
+          f"parameters f32; remat {t16.model.remat!r}; "
+          f"{step_ms['bf16']:.3f} ms by CUDA events (f32 "
           f"{step_ms['f32']:.3f}, PyTorch's defaults); {smi}", flush=True)
     return {"launches": {"serve": counts, "train": counts_t},
             "perf": perf, "step_ms": step_ms, "losses": losses,
@@ -3678,6 +3717,236 @@ def run_serving_surface(st, ev, tmpdir, requests, out_dir, smi) -> dict:
     return out
 
 
+# --------------------------------------------------------------------- #
+# phase 16: activation remat
+# --------------------------------------------------------------------- #
+# (tag, depth (None: VGG16), norm, remat choices; the first is the one the
+# others are held to bit for bit, None the backbone's default)
+REMAT_CELLS = (("resnet18_bn", 18, "BN", (False, "head", "trunk", True)),
+               ("resnet50_gn", 50, "GN", (False, "head", "trunk", True)),
+               ("resnet101_bn", 101, "BN", (None,)),
+               ("vgg16", None, None, (False, True)))
+REMAT_STEPS = 5           # timed combined steps a cell
+
+
+def _train_state(eng) -> dict:
+    """Host copies of what a step changes: the state dict (parameters and
+    running statistics) and Adam's moments (on the host, so that the next
+    cell's peak device memory does not hold them)."""
+    opt = eng.opt.state_dict()
+    state = {f"model.{k}": v.to("cpu", copy=True)
+             for k, v in eng.model.state_dict().items()}
+    for m in ("mu", "nu"):
+        state.update({f"{m}.{k}": v.to("cpu", copy=True)
+                      for k, v in opt[m].items()})
+    return state
+
+
+def _differing(a: dict, b: dict) -> list:
+    """The keys whose tensors differ between two ``_train_state``s."""
+    import torch
+
+    return [k for k in a if not torch.equal(a[k], b[k])]
+
+
+@contextlib.contextmanager
+def rng_preserving_checkpoints():
+    """``torch.utils.checkpoint.checkpoint`` with ``preserve_rng_state=True``
+    (its default) whatever its caller passes: the form
+    ``models/layers.py:checkpoint`` does not use, timed beside it."""
+    import torch.utils.checkpoint as tuc
+
+    orig = tuc.checkpoint
+    tuc.checkpoint = lambda *a, **k: orig(
+        *a, **{**k, "preserve_rng_state": True})
+    try:
+        yield
+    finally:
+        tuc.checkpoint = orig
+
+
+def remat_cell(tag, choice, make, cfg, canvas, joint, weak, smi,
+               want=None) -> dict:
+    """One training model under the remat ``choice`` (``make(choice)``):
+    the peak of its first combined step at PyTorch's defaults, after which
+    its weights are restored and its engine made anew; then
+    with TF32 off, deterministic cuDNN and deterministic algorithms, one
+    combined step and one MIL step, the counters set to 0 just before each
+    and read just after (#1 / pool forward / #4: 1 + 2 + 2 and 1 + 1 + 1,
+    as without remat; every pool forward on the shared-memory path); the
+    losses, the parameters, the running statistics (moved by the combined
+    step, unchanged by the MIL step) and Adam's moments after each step
+    held bit for bit to ``want`` (the run of the cell's first choice), the
+    first step's peak device memory and that of one more combined step;
+    then, at PyTorch's defaults, REMAT_STEPS more combined steps timed by
+    CUDA events and their peak device memory, and under full remat
+    REMAT_STEPS with RNG-preserving checkpoints
+    (``rng_preserving_checkpoints``) and REMAT_STEPS without."""
+    import torch
+
+    from wssdl_bus_tpu_torch.train.engine import Engine
+
+    label = "default" if choice is None else str(choice).lower()
+    path = f"remat_{tag}_{label}"
+    resident = torch.cuda.memory_allocated()
+    model = make(choice)
+    init = {k: v.to("cpu", copy=True) for k, v in model.state_dict().items()}
+    teng = Engine(model, cfg, canvas)
+    with pytorch_defaults():
+        torch.cuda.reset_peak_memory_stats()
+        teng.train_step(joint[0], step=TRAIN_STEP)
+        torch.cuda.synchronize()
+        peak_first_defaults = torch.cuda.max_memory_allocated()
+    del teng
+    model.load_state_dict(init)
+    model.zero_grad(set_to_none=True)
+    del init
+    teng = Engine(model, cfg, canvas)
+    pool = "roi_pool_fc" if teng.model.backbone == "VGGnet" \
+        else "roi_pool_grouped"
+    stats = [k for k in teng.model.state_dict()
+             if k.endswith((".mean", ".var"))]
+    before = {k: teng.model.state_dict()[k].to("cpu", copy=True)
+              for k in stats}
+    with deterministic_ops() as nondet:
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        losses = teng.train_step(joint[0], step=TRAIN_STEP)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        peak_first = torch.cuda.max_memory_allocated()
+        check_counts(counts, {"nms_keep": 1, pool: 2,
+                              "roi_pool_fc_backward": 2},
+                     f"{path} combined step")
+        check_pool_paths(counts, path)
+        after = _train_state(teng)
+        reset_counts()
+        mil = teng.train_step_mil(weak, step=TRAIN_STEP)
+        torch.cuda.synchronize()
+        counts_mil = read_counts()
+        check_counts(counts_mil, {"nms_keep": 1, pool: 1,
+                                  "roi_pool_fc_backward": 1},
+                     f"{path} MIL step")
+        check_pool_paths(counts_mil, f"{path}_mil")
+        after_mil = _train_state(teng)
+        torch.cuda.reset_peak_memory_stats()
+        teng.train_step(joint[0], step=TRAIN_STEP)
+        torch.cuda.synchronize()
+        peak_second = torch.cuda.max_memory_allocated()
+    losses = torch.stack(list(losses) + [mil]).cpu()
+    _check(bool(torch.isfinite(losses).all()), f"{path}: losses {losses}")
+    moved = [k for k in stats if not torch.equal(before[k],
+                                                 after[f"model.{k}"])]
+    _check(len(moved) == len(stats), f"{path}: running statistics the "
+           f"combined step did not move: {len(stats) - len(moved)}")
+    _check(not _differing({k: after[f"model.{k}"] for k in stats},
+                          {k: after_mil[f"model.{k}"] for k in stats}),
+           f"{path}: the MIL step changed running statistics")
+    if want is not None:
+        _check(torch.equal(losses, want["losses"]),
+               f"{path}: losses {losses.tolist()} != "
+               f"{want['losses'].tolist()} without remat")
+        for step, got, ref in (("combined", after, want["after"]),
+                               ("MIL", after_mil, want["after_mil"])):
+            diff = _differing(got, ref)
+            _check(not diff, f"{path}: after the {step} step {len(diff)} "
+                   f"tensors differ from the run without remat: {diff[:3]}")
+    with pytorch_defaults():
+        teng.train_step(joint[0], step=TRAIN_STEP)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        step_ms = time_train_step(teng, joint[-1], REMAT_STEPS)
+        peak = torch.cuda.max_memory_allocated()
+        rng_ms = None
+        if teng.model.remat is True:
+            with rng_preserving_checkpoints():
+                rng_ms = time_train_step(teng, joint[-1], REMAT_STEPS)
+            rng_ms = (rng_ms, time_train_step(teng, joint[-1], REMAT_STEPS))
+    rng_txt = "" if rng_ms is None else (
+        f"RNG-preserving checkpoints {rng_ms[0]:.3f} ms a step, then again "
+        f"without {rng_ms[1]:.3f}; ")
+    print(f"[remat] {tag} remat={label} (model.remat "
+          f"{teng.model.remat!r}): combined step {step_ms:.3f} ms by CUDA "
+          f"events ({REMAT_STEPS} steps, PyTorch's defaults), peak "
+          f"{peak / 2**30:.3f} "
+          f"GiB allocated ({resident / 2**30:.3f} GiB resident before the "
+          f"model; 16 GiB limit: "
+          f"{'within' if peak <= 16 * 2**30 else 'EXCEEDED'}); peak of "
+          f"the first step at PyTorch's defaults "
+          f"{peak_first_defaults / 2**30:.3f} GiB, of the first and the "
+          f"third step, TF32 off and deterministic, "
+          f"{peak_first / 2**30:.3f} and {peak_second / 2**30:.3f} GiB; "
+          f"{rng_txt}"
+          f"launches "
+          f"{counts} + MIL {counts_mil}; "
+          f"{'the reference run' if want is None else 'bit for bit as '}"
+          f"{'' if want is None else 'without remat'}"
+          f" (losses, {len(after)} tensors of state and moments, "
+          f"{len(stats)} running statistics moved by the combined step and "
+          f"unchanged by the MIL step); ops without a deterministic "
+          f"implementation: {sorted(set(nondet)) or 'none'}; {smi}",
+          flush=True)
+    out = {"losses": losses, "after": after, "after_mil": after_mil,
+           "launches": {path: counts, f"{path}_mil": counts_mil},
+           "reading": {"remat": teng.model.remat, "step_ms": step_ms,
+                       "peak_bytes": peak, "resident_bytes": resident,
+                       "first_step_defaults_peak_bytes":
+                           peak_first_defaults,
+                       "first_step_deterministic_peak_bytes": peak_first,
+                       "third_step_deterministic_peak_bytes": peak_second,
+                       "rng_preserving_step_ms":
+                           None if rng_ms is None else rng_ms[0],
+                       "step_ms_again": None if rng_ms is None else rng_ms[1],
+                       "within_16_gib": peak <= 16 * 2**30,
+                       "equal_to_first": want is not None}}
+    del teng, model
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_remat(st, vgg, smi) -> dict:
+    """Phase 16 (after phase 15; TF32 off and deterministic cuDNN but where
+    timed): each REMAT_CELLS model at full width from seeded He weights, at
+    the training canvas and the TRAIN defaults, under each of its remat
+    choices (``remat_cell``); ``vgg`` the VGG16 phase's (cfg, canvas,
+    joint, weak)."""
+    import torch
+
+    from wssdl_bus_tpu_torch.models.convert import he_init_
+    from wssdl_bus_tpu_torch.models.detector import build_detector
+
+    t0 = time.perf_counter()
+    out = {"launches": {}, "readings": {}}
+    for tag, depth, norm, choices in REMAT_CELLS:
+        if depth is None:
+            cfg, canvas, joint, weak = vgg
+
+            def make(choice):
+                return he_init_(build_detector(
+                    "VGGnet_train", device="cuda", remat=choice), 0,
+                    input_scale=64.0)
+        else:
+            cfg, canvas = st["cfg"], st["tcanvas"]
+            joint, weak = st["joint"], st["weak"]
+
+            def make(choice, depth=depth, norm=norm):
+                return resnet_model(RESNET_NET["train"], depth, norm,
+                                    remat=choice)
+        first = None
+        for choice in choices:
+            cell = remat_cell(tag, choice, make, cfg, canvas, joint, weak,
+                              smi, first)
+            if first is None:
+                first = cell
+            out["launches"].update(cell["launches"])
+            label = "default" if choice is None else str(choice).lower()
+            out["readings"][f"{tag}_{label}"] = cell["reading"]
+        del first
+        torch.cuda.empty_cache()
+    print(f"[remat] phase 16: {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3943,6 +4212,12 @@ def main() -> int:
     phase("15 (serving surface)")
     surface = run_serving_surface(rst, evaluation, tmp.name, requests,
                                   out_dir, smi)
+
+    # phase 16: activation remat (TF32 off but where timed)
+    phase("16 (remat)")
+    del teng, tmodel, eng_plain     # the VGG16 engines no later phase uses
+    torch.cuda.empty_cache()
+    remat = run_remat(rst, (tcfg, tcanvas, joint, weak), smi)
     tmp.cleanup()
 
     paths = {"serve": serve_launches, "train": train_launches,
@@ -3956,6 +4231,7 @@ def main() -> int:
     paths.update(resnet.pop("launches"))
     paths.update(precision.pop("launches"))
     paths.update(surface.pop("launches"))
+    paths.update(remat.pop("launches"))
 
     def launches(name):
         by_path = {p: c[name] for p, c in paths.items()}
@@ -4080,6 +4356,7 @@ def main() -> int:
                           "bf16": precision["bf16"],
                           "cli": precision["cli"]},
                       "serving_surface": surface,
+                      "remat": remat["readings"],
                       "stem_paths": {STEM_PATHS[n]: {
                           k: v for k, v in r.items() if k in (
                               "serving", "training")}

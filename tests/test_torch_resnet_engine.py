@@ -131,18 +131,21 @@ def _dyadic(a, bits):
     return (np.round(a * 2.0 ** bits) / 2.0 ** bits).astype(np.float32)
 
 
-def _build(norm, seed, rpn_scale):
+def _build(norm, seed, rpn_scale, remat=False):
+    """Both sides' models (activation remat ``remat`` on both), Adam
+    states, the batch and the jitted JAX step."""
     torch.set_num_threads(2)
     jcfg, cfg = _cfgs()
     assert cfg.TRAIN.BATCH_SIZE == R and cfg.TEST.RPN_POST_NMS_TOP_N == P
-    port = build_detector(NET, device="cpu", depth=18, norm=norm)
+    port = build_detector(NET, device="cpu", depth=18, norm=norm,
+                          remat=remat)
     he = _perturbed(he_tree(params_to_jax(port.state_dict()), seed), seed)
     he["trunk"]["params"]["rpn_cls_score"]["conv"]["kernel"] *= rpn_scale
     he["trunk"]["params"]["rpn_bbox_pred"]["conv"]["kernel"] *= 0.03
     conv0 = he["trunk"]["params"]["backbone"]["conv0"]["conv"]
     conv0["kernel"] = _dyadic(conv0["kernel"], 12)
     port.load_state_dict(params_from_jax(he))
-    jm = JaxFasterRCNN(backbone="Resnet", depth=18, norm=norm, remat=False)
+    jm = JaxFasterRCNN(backbone="Resnet", depth=18, norm=norm, remat=remat)
     jeng = JaxEngine(jm, jcfg, CANVAS)
     jvars = jax.tree.map(jnp.asarray, he)
     params = {"trunk": jvars["trunk"]["params"],

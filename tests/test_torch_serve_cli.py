@@ -197,12 +197,25 @@ def test_predict_rejects_cfg_with_artifact(setup, tmp_path):
         assert e.value.code == 2
 
 
-@pytest.mark.parametrize("option", [["--mesh_data", "2"], ["--remat", "true"]])
+@pytest.mark.parametrize("option", [
+    pytest.param(["--mesh_data", "2"], id="option0"),
+    # --remat is ported: its case (the id keeps its place in the list)
+    # checks that it is accepted and changes no prediction
+    pytest.param(["--remat", "true"], id="option1")])
 @pytest.mark.parametrize("mode", ["artifact", "model"])
 def test_predict_refuses_unported_options(setup, tmp_path, option, mode):
-    """The options the port has no path for raise in both modes."""
+    """The options the port has no path for raise in both modes.  An option
+    ported since its case was written (``--remat``, which applies in
+    training only) is accepted, and the predictions equal those without
+    it."""
     src = (["--artifact", setup["arts"]["f32"]] if mode == "artifact"
            else ["--model", setup["snap"], "--network", NET])
+    if option[0] == "--remat":
+        cfgs = ["--set_cfgs", *OVERRIDES] if mode == "model" else []
+        got = _predict(setup, tmp_path / "with", *src, *option, *cfgs)
+        want = _predict(setup, tmp_path / "without", *src, *cfgs)
+        assert got == want and sum(len(e["detections"]) for e in want) > 0
+        return
     with pytest.raises(NotImplementedError):
         main_predict.main(setup["paths"][:1] + ["--out", str(tmp_path),
                                                 "--device", "cpu"]

@@ -35,7 +35,8 @@ from wssdl_bus_tpu_torch.data.augment import max_canvas
 from wssdl_bus_tpu_torch.data import dataset
 from wssdl_bus_tpu_torch.evaluate.detect import test_net as port_test_net
 from wssdl_bus_tpu_torch.main import test as main_test
-from wssdl_bus_tpu_torch.models.convert import he_tree, params_from_jax
+from wssdl_bus_tpu_torch.models.convert import (he_init_, he_tree,
+                                                params_from_jax)
 from wssdl_bus_tpu_torch.models.detector import build_detector
 from wssdl_bus_tpu_torch.train.checkpoint import save_checkpoint
 from wssdl_bus_tpu_torch.train.engine import Engine
@@ -147,12 +148,45 @@ def test_main_end_to_end(setup):
     pytest.param(["--int8", "--mesh_data", "2"], "single-device",
                  id="extra1-A7"),
     (["--mesh_data", "2"], "A10"),
-    # the ResNet detectors are ported; the JAX package's ResNet default of
-    # full remat is not (the id keeps the case's place in the list)
-    pytest.param(["--network", "Resnet_test", "--remat", "head"], "remat",
+    # --remat is ported: its cases (the ids keep their places in the list)
+    # check that it is accepted and changes no detection (match None)
+    pytest.param(["--network", "Resnet_test", "--remat", "head"], None,
                  id="extra3-A6"),
-    (["--remat", "true"], "remat")])
+    pytest.param(["--remat", "true"], None, id="extra4-remat")])
 def test_main_refuses_what_is_not_ported(setup, extra, match):
-    with pytest.raises(NotImplementedError, match=match):
-        main_test.main(["--model", "unused", "--data_dir", setup["data"],
-                        "--device", "cpu", "--network", NET, *extra])
+    """What the port has no path for raises.  An option ported since its
+    case was written (``--remat``, which applies in training only) is
+    accepted, and the evaluation's detections and result equal those of
+    the same snapshot evaluated without it, bit for bit."""
+    if match is not None:
+        with pytest.raises(NotImplementedError, match=match):
+            main_test.main(["--model", "unused", "--data_dir",
+                            setup["data"], "--device", "cpu", "--network",
+                            NET, *extra])
+        return
+    root = setup["root"]
+    if "Resnet_test" in extra:
+        model = build_detector("Resnet_test", device="cpu", depth=18,
+                               norm="BN")
+        he_init_(model, SEED)
+    else:
+        model = setup["model"]
+    at = extra.index("--remat")
+    name = extra[at + 1]
+    snap = save_checkpoint(str(root / f"snap_remat_{name}"), "net", "", 0,
+                           model.state_dict())
+    runs = []
+    for tag, opt in (("with", extra), ("without", extra[:at])):
+        runs.append(main_test.main(
+            ["--model", snap, "--imdb_test", "bus_test", "--data_dir",
+             setup["data"], "--network", NET, "--device", "cpu",
+             "--output_dir", str(root / f"remat_{name}_{tag}"),
+             "--batch_size", "2", *opt, "--set_cfgs", *OVERRIDES]))
+    (got, got_res), (want, want_res) = runs
+    assert got_res == want_res
+    n = 0
+    for j in (1, 2):
+        for i in range(N_IMAGES):
+            assert np.array_equal(got[j][i], want[j][i]), (j, i)
+            n += len(want[j][i])
+    assert n > 0

@@ -2,13 +2,17 @@
 ``wssdl_bus_tpu/main/common.py``; the reference's ``code/main/train.py:18-48``
 arguments).
 
-Used by ``main/test.py``, ``main/train.py`` and ``main/train_alter.py``.
-``--bf16`` builds the detector with bf16 convs and dense layers
-(``models/detector.py:build_detector(compute_dtype=)``).  What the port
-has no path for yet raises ``NotImplementedError`` naming the ROADMAP
-item, never silently ignored: ``--mesh_data`` / ``--mesh_model`` > 1
-(A10), ``--remat``.  The JAX package's XLA compilation cache has no
-counterpart here.
+Used by ``main/test.py``, ``main/train.py``, ``main/train_alter.py``,
+``main/export.py`` and ``main/predict.py``.  ``--bf16`` builds the
+detector with bf16 convs and dense layers
+(``models/detector.py:build_detector(compute_dtype=)``); ``--remat``
+{true, false, head, trunk} overrides the backbone's activation-remat
+default (``build_detector(remat=)``: off for VGG16, full remat for every
+ResNet), which applies in training only, so the serving and evaluation
+CLIs accept it and serve the same detections.  What the port has no path
+for yet raises ``NotImplementedError`` naming the ROADMAP item, never
+silently ignored: ``--mesh_data`` / ``--mesh_model`` > 1 (A10).  The JAX
+package's XLA compilation cache has no counterpart here.
 """
 
 from __future__ import annotations
@@ -40,7 +44,10 @@ def add_common_args(parser: argparse.ArgumentParser):
                              "stay f32")
     parser.add_argument("--remat", default=None,
                         choices=["true", "false", "head", "trunk"],
-                        help="activation remat (not ported yet)")
+                        help="override the backbone's activation-remat "
+                             "default (off for VGG16, true for ResNet; "
+                             "models/detector.py:build_detector); applies "
+                             "to training only")
     parser.add_argument("--data_dir", default="./SNUBH_BUS", type=str,
                         help="SNUBH_BUS dataset root")
     parser.add_argument("--set_cfgs", default=None, nargs=argparse.REMAINDER,
@@ -66,10 +73,6 @@ def check_ported(args) -> None:
         raise NotImplementedError(
             "--mesh_data / --mesh_model > 1: multi-device is not ported yet "
             "(ROADMAP.md A10, multi-device)")
-    if getattr(args, "remat", None) is not None:
-        raise NotImplementedError(
-            "--remat: the port has no activation-remat option; its "
-            "training memory is measured without one (PERF.md)")
 
 
 def build_model(args, cfg: Config, freeze_stem: bool = True):
@@ -77,7 +80,9 @@ def build_model(args, cfg: Config, freeze_stem: bool = True):
     default init: a snapshot or converted weights are loaded into it):
     ``--network``, and for ``Resnet_*`` ``--net_depth``, ``--norm_type``
     (BN / GN) and the GN group heuristic of ``cfg``
-    (TRAIN.GN_MIN_NUM_G / GN_MIN_CHS_PER_G); ``--bf16`` its compute dtype
+    (TRAIN.GN_MIN_NUM_G / GN_MIN_CHS_PER_G); ``--remat`` its activation
+    remat (None, the backbone's default, when not given; the JAX CLI's
+    mapping); ``--bf16`` its compute dtype
     (the solver trains and evaluates the model it is given, so the dtype
     reaches ``main.train`` / ``main.train_alter`` through it, where the JAX
     package passes ``compute_dtype`` down to its ``build_detector``).
@@ -94,6 +99,7 @@ def build_model(args, cfg: Config, freeze_stem: bool = True):
         # norms nor conv biases, a tree no port model has
         raise ValueError(f"--norm_type must be BN or GN for a ResNet, got "
                          f"{args.norm_type!r}")
+    remat = getattr(args, "remat", None)
     return build_detector(args.network, num_classes=3, device=args.device,
                           freeze_stem=freeze_stem, depth=args.net_depth,
                           norm=args.norm_type,
@@ -101,7 +107,9 @@ def build_model(args, cfg: Config, freeze_stem: bool = True):
                                      cfg.TRAIN.GN_MIN_CHS_PER_G),
                           compute_dtype=(torch.bfloat16
                                          if getattr(args, "bf16", False)
-                                         else None))
+                                         else None),
+                          remat={None: None, "true": True,
+                                 "false": False}.get(remat, remat))
 
 
 def add_train_args(parser: argparse.ArgumentParser):

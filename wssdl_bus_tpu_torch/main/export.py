@@ -10,7 +10,8 @@ Restores the snapshot (``train/checkpoint.py``) into the detector
 (``meta.json`` + ``variables.pt``).  ``--int8`` calibrates the activation
 ranges on ``--calib_images`` images of ``--imdb_test`` and ships the int8
 tree (VGG16 trunk; ResNet trunk and group3 head, norm BN).  ``--bf16``
-records bf16 compute in the artifact.  Runs on CUDA unless ``--device
+records bf16 compute in the artifact; ``--remat`` is accepted and changes
+nothing (training only).  Runs on CUDA unless ``--device
 cpu``; the options ``main/common.py:check_ported`` names raise.
 """
 

@@ -15,7 +15,8 @@ on CUDA unless ``--device cpu``.  ``--bf16`` evaluates in bf16 compute;
 ``--calib_imdb`` (default: the evaluated split), quantizes the model
 (``Engine.quantize_for_serving``) and evaluates it through
 ``models/quantize.py:QuantServingEngine`` (int8 VGG16 trunk; ResNet trunk
-and group3 head, norm BN; GroupNorm raises).  The options
+and group3 head, norm BN; GroupNorm raises).  ``--remat`` is accepted
+and changes no detection (remat applies in training only).  The options
 ``main/common.py:check_ported`` names raise.
 """
 

@@ -10,6 +10,13 @@ outputs as [B, h, w, C], so the proposal layer flattens scores in the
 the compute dtype (``build_detector(compute_dtype=torch.bfloat16)``,
 ``models/layers.py``), as the JAX package's ``apply_trunk`` /
 ``apply_head`` cast their outputs back.
+
+``FasterRCNN.remat`` (False, True, "trunk" or "head") recomputes the
+chosen parts' activations in the backward instead of keeping them, in
+training only, a residual block (or a VGG16 conv stage) at a time
+(``models/layers.py:checkpoint``); ``build_detector`` turns it on for
+every ResNet and off for VGG16, the JAX package's defaults
+(``wssdl_bus_tpu/models/detector.py:261-280``).
 """
 
 from __future__ import annotations
@@ -53,19 +60,20 @@ class TrunkRPN(nn.Module):
         self.rpn_bbox_pred = ConvBlock(rpn_ch, 4 * num_anchors, 1,
                                        padding="VALID", relu=False)
 
-    def forward(self, data, stem_done: bool = False):
+    def forward(self, data, stem_done: bool = False, remat: bool = False):
         """data [B, H, W, 3] -> (feat, rpn_cls_score, rpn_bbox_pred), each
         NHWC and contiguous.  With ``stem_done`` (VGG16 only) ``data`` is
         the pooled conv1 output [B, H/2, W/2, 64]
-        (models/vgg.py:VGG16Backbone)."""
+        (models/vgg.py:VGG16Backbone).  ``remat``: the backbone's
+        activation remat (its stages or residual blocks in checkpoints)."""
         # the NCHW view of an NHWC tensor is channels_last memory: no copy
         x = data.permute(0, 3, 1, 2)
         if isinstance(self.backbone, VGG16Backbone):
-            feat = self.backbone(x, stem_done)
+            feat = self.backbone(x, stem_done, remat)
         elif stem_done:
             raise ValueError("stem_done is a VGG-only fast path")
         else:
-            feat = self.backbone(x)
+            feat = self.backbone(x, remat)
         return self.heads(feat)
 
     def heads(self, feat, f32: bool = False):
@@ -101,14 +109,31 @@ class FasterRCNN(nn.Module):
     the JAX variable tree (``models/convert.py``); BatchRenorm's running
     statistics are buffers, so ``state_dict()`` carries them.
     ``compute_dtype``: None (f32) or ``torch.bfloat16``, the compute dtype
-    of every conv and dense layer (``models/layers.py``)."""
+    of every conv and dense layer (``models/layers.py``).
+
+    ``remat``: False, True (both parts), "trunk" or "head", the parts whose
+    activations are recomputed in the backward of a training step rather
+    than kept (the JAX package's ``FasterRCNN.remat``,
+    ``wssdl_bus_tpu/models/detector.py:104-117``).  The JAX package
+    checkpoints each part whole, where XLA's fusion keeps few
+    intermediates; eager PyTorch keeps every op's, and a checkpoint
+    recomputes all of its part at once in the backward, so the port takes
+    one checkpoint per residual block (per conv stage of VGG16's trunk;
+    VGG16's head is one): the peak then holds one block's activations, not
+    a part's (PERF.md §5).  The trunk's checkpoints start after the VGG
+    stem kernels and the head's after the ROI pool, so every kernel
+    launches as often a step as without remat; and the step's numbers are
+    those without it, bit for bit (``models/layers.py:checkpoint``)."""
 
     def __init__(self, num_classes: int = 3, num_anchors: int = 9,
                  backbone: str = "VGGnet", depth: int = 50, norm=None,
-                 gn_params=(8, 4), compute_dtype=None):
+                 gn_params=(8, 4), compute_dtype=None, remat=False):
         super().__init__()
         if backbone not in ("VGGnet", "Resnet"):
             raise KeyError(f"unknown backbone {backbone!r}")
+        if remat not in (False, True, "trunk", "head"):
+            raise ValueError(f"remat must be False, True, 'trunk' or "
+                             f"'head', got {remat!r}")
         if backbone == "Resnet" and depth not in RESNET_DEFS:
             raise KeyError(f"unsupported ResNet depth {depth}")
         self.backbone = backbone
@@ -122,6 +147,13 @@ class FasterRCNN(nn.Module):
                      ResNetRCNNHead(depth, self.norm, num_classes, gn_params))
         self.compute_dtype = compute_dtype
         set_compute_dtype(self, compute_dtype)
+        self.remat = remat
+
+    def _remat(self, part: str) -> bool:
+        """Whether ``part`` ("trunk" / "head") runs under a checkpoint now:
+        in training, with gradients recorded, and chosen by ``remat``."""
+        return (self.training and torch.is_grad_enabled()
+                and (self.remat is True or self.remat == part))
 
     def apply_trunk(self, data, stem_frozen: bool = True,
                     plain_ops: bool = False):
@@ -149,13 +181,16 @@ class FasterRCNN(nn.Module):
         dtype, as in the JAX package (``detector.py:198``); the fused stem
         does not, and hands its f32 output to conv2_1 under bf16 too.  A
         ResNet trunk has no stem kernel and runs its modules as they
-        are."""
+        are.  Under trunk remat the backbone's stages or blocks after the
+        stem run in checkpoints (the stem kernels' output is the first
+        one's input)."""
         stem = None
         if self.backbone == "VGGnet" and (stem_frozen or not self.training):
             stem = self._stem(data, plain_ops)
+        remat = self._remat("trunk")
         if stem is None:
-            return self.trunk(data)
-        return self.trunk(stem, stem_done=True)
+            return self.trunk(data, remat=remat)
+        return self.trunk(stem, stem_done=True, remat=remat)
 
     def _stem(self, data, plain_ops: bool):
         """The pooled conv1 output from a stem kernel, or None when neither
@@ -179,8 +214,11 @@ class FasterRCNN(nn.Module):
         [N, 7*7*C] (VGG16) or the pooled [N, 7, 7, C] (ResNet).  In
         training mode the VGG head's dropouts use the masks ``keep`` (fc6,
         fc7) or draw from ``generator`` (models/vgg.py:VGGRCNNHead); the
-        ResNet head has no dropout.  Both outputs f32."""
-        cls, bbox = self.head(roi_feats, keep, generator)
+        ResNet head has no dropout.  Both outputs f32.  Under head remat
+        the head runs in checkpoints whose first input is the pooled
+        operand (the ROI pool stays outside them)."""
+        cls, bbox = self.head(roi_feats, keep, generator,
+                              remat=self._remat("head"))
         return cls.float(), bbox.float()
 
 
@@ -214,7 +252,8 @@ def freeze_vgg_stem(model: FasterRCNN) -> FasterRCNN:
 
 def build_detector(name: str, num_classes: int = 3, device=None,
                    freeze_stem: bool = True, depth: int = 50, norm=None,
-                   gn_params=(8, 4), compute_dtype=None) -> FasterRCNN:
+                   gn_params=(8, 4), compute_dtype=None,
+                   remat=None) -> FasterRCNN:
     """Factory mirroring the JAX package's ``build_detector`` names:
     '*_test' builds the detector in eval mode, '*_train' (and '_alter'
     variants) in training mode.  'VGGnet_*' is VGG16, with conv1/conv2
@@ -225,14 +264,18 @@ def build_detector(name: str, num_classes: int = 3, device=None,
     frozen (``freeze_stem`` is ignored, as the JAX package's
     ``Engine.init`` ignores it).  ``compute_dtype`` None (f32) or
     ``torch.bfloat16`` (the ``--bf16`` option): the convs and dense layers
-    compute in it, parameters stay f32.  On ``device`` (CUDA unless named;
-    raises without a card), channels_last.  Weights are PyTorch's default
-    init: load converted or seeded weights with ``models/convert.py``."""
+    compute in it, parameters stay f32.  ``remat`` (``FasterRCNN.remat``;
+    the ``--remat`` option): None picks the JAX package's default, off for
+    VGG16 and full remat (True) for every ResNet; False, True, "trunk" or
+    "head" choose.  On ``device`` (CUDA unless named; raises without a
+    card), channels_last.  Weights are PyTorch's default init: load
+    converted or seeded weights with ``models/convert.py``."""
     if name.startswith("Resnet"):
         kw = dict(backbone="Resnet", depth=depth, norm=norm,
-                  gn_params=tuple(gn_params))
+                  gn_params=tuple(gn_params),
+                  remat=True if remat is None else remat)
     elif name.startswith("VGGnet"):
-        kw = dict(backbone="VGGnet")
+        kw = dict(backbone="VGGnet", remat=False if remat is None else remat)
     else:
         raise KeyError(f"unknown network name {name}")
     dev = resolve_device(device)

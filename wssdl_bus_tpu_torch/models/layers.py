@@ -20,13 +20,27 @@ f32.  The dtype is an attribute of each module, set once by
 scope: PyTorch runs eagerly, and an attribute travels with the model into
 every thread that runs it (the prefetch and evaluation threads) where a
 thread-local scope would not.
+
+Activation remat (``models/detector.py:FasterRCNN.remat``) runs each
+residual block (each VGG16 conv stage, the VGG16 head) under
+:func:`checkpoint`, ``torch.utils.checkpoint``'s non-reentrant form, which
+recomputes the block's forward in the backward.
+``BatchRenorm`` updates its running statistics in its training forward,
+where the JAX package's checkpointed function returns them
+(``wssdl_bus_tpu/models/detector.py:218-228``); so within a checkpoint the
+first run records the statistics each norm read, and the recompute
+normalises with those and updates nothing (``_RenormReplay``).  That scope
+is thread-local: the recompute runs in the thread of the backward (on the
+card, autograd's device thread), and each run enters it there.
 """
 
 from __future__ import annotations
 
 import contextlib
+import threading
 
 import torch
+import torch.utils.checkpoint
 import torch.nn.functional as F
 from torch import nn
 
@@ -42,8 +56,10 @@ class BatchRenorm(nn.Module):
     ra_mean) / sigma_m`` come from the running statistics before the update
     and carry no gradient; the running var takes the biased batch var.  The
     running statistics update in place unless :attr:`update_stats` is False
-    (:func:`running_stats_frozen`).  In eval mode the output is ``(x -
-    ra_mean) * rsqrt(ra_var + eps) * gamma + beta``."""
+    (:func:`running_stats_frozen`), and never in the recompute of a
+    :func:`checkpoint`, which reads the statistics its first run read.  In
+    eval mode the output is ``(x - ra_mean) * rsqrt(ra_var + eps) * gamma
+    + beta``."""
 
     def __init__(self, channels: int, momentum: float = 0.99,
                  epsilon: float = 1e-3):
@@ -68,11 +84,15 @@ class BatchRenorm(nn.Module):
         mean = x.mean(dim=axes)
         var = x.var(dim=axes, correction=0)
         sigma_b = torch.sqrt(var + self.epsilon)
+        replay = getattr(_REMAT, "scope", None)
+        ra_mean, ra_var, update = (
+            (self.mean, self.var, self.update_stats) if replay is None
+            else replay.running_stats(self))
         with torch.no_grad():
-            sigma_m = torch.sqrt(self.var + self.epsilon)
+            sigma_m = torch.sqrt(ra_var + self.epsilon)
             r = sigma_b / sigma_m
-            d = (mean - self.mean) / sigma_m
-            if self.update_stats:
+            d = (mean - ra_mean) / sigma_m
+            if update:
                 m = self.momentum
                 self.mean.copy_(m * self.mean + (1.0 - m) * mean)
                 self.var.copy_(m * self.var + (1.0 - m) * var)
@@ -98,6 +118,78 @@ def running_stats_frozen(module: nn.Module):
     finally:
         for m, p in zip(norms, prev):
             m.update_stats = p
+
+
+_REMAT = threading.local()      # .scope: the _RenormReplay run in this thread
+
+
+class _RenormReplay:
+    """One :func:`checkpoint` call's record of the running statistics each
+    ``BatchRenorm`` read, in call order.  Its first run (the first scope of
+    :meth:`contexts`) reads and updates the buffers as usual and saves a
+    copy of what each norm read; each recompute (the second scope) reads
+    the saved copies in the same order and updates nothing.  The
+    recompute then computes r and d, and so every activation and gradient,
+    exactly as the first run did; and a statistic updates once a step,
+    whatever the backward recomputes (an early-stopped recompute reads a
+    prefix of the record)."""
+
+    def __init__(self):
+        self.seen = []
+        self.replaying = False
+        self.pos = 0
+
+    def contexts(self):
+        """``checkpoint``'s ``context_fn``: the (first run, recompute)
+        context managers."""
+        return _ReplayScope(self, False), _ReplayScope(self, True)
+
+    def running_stats(self, norm: "BatchRenorm"):
+        """-> (running mean, running var, whether to update them) for
+        ``norm``'s training forward within the checkpoint."""
+        if not self.replaying:
+            self.seen.append((norm, norm.mean.clone(), norm.var.clone()))
+            return norm.mean, norm.var, norm.update_stats
+        seen, mean, var = self.seen[self.pos]
+        if seen is not norm:
+            raise RuntimeError("checkpoint recompute reached the BatchRenorm "
+                               "modules in another order than its forward")
+        self.pos += 1
+        return mean, var, False
+
+
+class _ReplayScope:
+    """Makes ``replay`` the scope of this thread, recording or replaying;
+    may be entered again (a second backward recomputes again)."""
+
+    def __init__(self, replay: _RenormReplay, replaying: bool):
+        self.replay, self.replaying = replay, replaying
+        self.prev = None
+
+    def __enter__(self):
+        self.prev = getattr(_REMAT, "scope", None)
+        self.replay.replaying, self.replay.pos = self.replaying, 0
+        _REMAT.scope = self.replay
+
+    def __exit__(self, *exc):
+        _REMAT.scope = self.prev
+
+
+def checkpoint(fn, *args, **kwargs):
+    """``fn(*args, **kwargs)`` with its activations recomputed in the
+    backward instead of kept: ``torch.utils.checkpoint`` in its
+    non-reentrant form (the reentrant one returns no parameter gradients
+    when no input requires one, as the trunk's image blob never does), with
+    every ``BatchRenorm`` in ``fn`` replayed as :class:`_RenormReplay`
+    describes.  ``fn`` draws no random numbers: the checkpoint neither
+    saves nor restores any generator's state for its recompute
+    (``preserve_rng_state=False``; the default form would restore only the
+    default generators, never an explicit one), so the caller draws such
+    masks first and passes them in (``models/vgg.py:VGGRCNNHead.forward``)."""
+    replay = _RenormReplay()
+    return torch.utils.checkpoint.checkpoint(
+        fn, *args, use_reentrant=False, preserve_rng_state=False,
+        context_fn=replay.contexts, **kwargs)
 
 
 class GroupNormRef(nn.Module):
@@ -274,11 +366,16 @@ class Dropout(nn.Module):
         super().__init__()
         self.keep_prob = 1.0 - rate
 
+    def draw(self, shape, generator=None, device=None):
+        """A keep mask of ``shape`` drawn from ``generator``, as
+        :meth:`forward` draws it (in f32 whatever x's dtype, as flax's
+        bernoulli is)."""
+        return torch.rand(shape, generator=generator, device=device,
+                          dtype=torch.float32) < self.keep_prob
+
     def forward(self, x, keep=None, generator=None):
         if not self.training:
             return x
         if keep is None:
-            # drawn in f32 whatever x's dtype, as flax's bernoulli is
-            keep = torch.rand(x.shape, generator=generator, device=x.device,
-                              dtype=torch.float32) < self.keep_prob
+            keep = self.draw(x.shape, generator, x.device)
         return torch.where(keep, x / self.keep_prob, torch.zeros_like(x))

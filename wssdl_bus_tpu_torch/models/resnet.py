@@ -14,7 +14,11 @@
     it, and group0's block0 has no preact.
 
 The bottleneck puts the stride on conv2; ``convshortcut`` exists only where
-the block changes the channel count.  Norm "BN" (``BatchRenorm``), "GN"
+the block changes the channel count.  Under activation remat (``remat``,
+``models/detector.py:FasterRCNN.remat``) each residual block runs in a
+checkpoint of its own (``models/layers.py:checkpoint``): a checkpoint
+recomputes all of its activations at once in the backward, so one block at
+a time is what bounds the step's peak.  Norm "BN" (``BatchRenorm``), "GN"
 (``GroupNormRef``, ``gn_params`` = (GN_MIN_NUM_G, GN_MIN_CHS_PER_G)) or
 None.  Module names are the JAX package's, so state-dict keys follow its
 variable tree (``models/convert.py``).  Tensors are NCHW.
@@ -25,7 +29,8 @@ from __future__ import annotations
 import torch.nn.functional as F
 from torch import nn
 
-from wssdl_bus_tpu_torch.models.layers import ConvBlock, Fc, make_norm
+from wssdl_bus_tpu_torch.models.layers import (ConvBlock, Fc, checkpoint,
+                                               make_norm)
 
 RESNET_DEFS = {
     18: ([2, 2, 2, 2], "basic"),
@@ -108,9 +113,10 @@ class _Group(nn.Module):
                                                 kind, norm, gn_params))
         self.out_channels = c_out
 
-    def forward(self, x):
+    def forward(self, x, remat: bool = False):
+        """``remat``: each block in a checkpoint of its own."""
         for block in self.children():
-            x = block(x)
+            x = checkpoint(block, x) if remat else block(x)
         return x
 
 
@@ -133,10 +139,13 @@ class ResNetBackbone(nn.Module):
         self.out_channels = c
         self.group2_norm = make_norm(norm, c, gn_params)
 
-    def forward(self, x):
+    def forward(self, x, remat: bool = False):
+        """``remat``: each residual block in a checkpoint of its own (conv0,
+        the max-pool and ``group2_norm`` outside)."""
         x = self.conv0(x)
         x = F.max_pool2d(x, 3, 2)      # 3x3/2 VALID
-        x = self.group2(self.group1(self.group0(x)))
+        for group in (self.group0, self.group1, self.group2):
+            x = group(x, remat)
         if self.group2_norm is not None:
             x = self.group2_norm(x)
         return F.relu(x)
@@ -158,11 +167,13 @@ class ResNetRCNNHead(nn.Module):
         self.cls_score = Fc(c, num_classes, relu=False)
         self.bbox_pred = Fc(c, num_classes * 4, relu=False)
 
-    def forward(self, roi_feats, keep=None, generator=None):
+    def forward(self, roi_feats, keep=None, generator=None,
+                remat: bool = False):
         """-> (cls_score, bbox_pred); ``keep`` and ``generator`` are the
-        VGG head's dropout arguments, unused here (no dropout)."""
+        VGG head's dropout arguments, unused here (no dropout); ``remat``:
+        each block of group3 in a checkpoint of its own."""
         # the NCHW view of an NHWC tensor is channels_last memory: no copy
-        x = self.group3(roi_feats.permute(0, 3, 1, 2))
+        x = self.group3(roi_feats.permute(0, 3, 1, 2), remat)
         if self.group3_norm is not None:
             x = self.group3_norm(x)
         x = F.relu(x).mean(dim=(2, 3))

@@ -4,14 +4,18 @@ conv1-conv5 with 2x2 VALID max-pools and biased convs without
 normalisation, and the fc6(512) -> dropout -> fc7(512) -> dropout ->
 cls_score / bbox_pred head (dropout rate 0.5 in training, the identity in
 eval mode).  Module names match the JAX package's (and so the reference's
-variable scopes); ``models/convert.py`` maps one onto the other.
+variable scopes); ``models/convert.py`` maps one onto the other.  Under
+activation remat (``models/detector.py:FasterRCNN.remat``) each conv stage
+of the trunk runs in a checkpoint of its own, and the head in one, its
+dropout masks drawn first (``models/layers.py:checkpoint``).
 """
 
 from __future__ import annotations
 
 from torch import nn
 
-from wssdl_bus_tpu_torch.models.layers import ConvBlock, Dropout, Fc, max_pool
+from wssdl_bus_tpu_torch.models.layers import (ConvBlock, Dropout, Fc,
+                                               checkpoint, max_pool)
 
 # (name, out channels), with a 2x2 max-pool after each stage but the last
 VGG16_STAGES = (
@@ -41,15 +45,19 @@ class VGG16Backbone(nn.Module):
                 self.add_module(name, ConvBlock(in_ch, ch, 3))
                 in_ch = ch
 
-    def forward(self, x, stem_done: bool = False):
-        for s, stage in enumerate(VGG16_STAGES):
+    def forward(self, x, stem_done: bool = False, remat: bool = False):
+        """``remat``: each stage (its convs and pool) in a checkpoint of its
+        own."""
+        for s in range(len(VGG16_STAGES)):
             if stem_done and s == 0:
                 continue
-            for name, _ in stage:
-                x = getattr(self, name)(x)
-            if s < len(VGG16_STAGES) - 1:
-                x = max_pool(x, 2, 2)
+            x = checkpoint(self._stage, x, s) if remat else self._stage(x, s)
         return x
+
+    def _stage(self, x, s: int):
+        for name, _ in VGG16_STAGES[s]:
+            x = getattr(self, name)(x)
+        return max_pool(x, 2, 2) if s < len(VGG16_STAGES) - 1 else x
 
 
 class VGGRCNNHead(nn.Module):
@@ -65,9 +73,27 @@ class VGGRCNNHead(nn.Module):
         self.drop6 = Dropout(0.5)
         self.drop7 = Dropout(0.5)
 
-    def forward(self, roi_feats, keep=None, generator=None):
+    def draw_keep(self, n: int, generator=None, device=None) -> tuple:
+        """The (fc6, fc7) keep masks, bool [n, 512] each, that
+        :meth:`forward` would draw from ``generator`` for ``n`` ROIs, in its
+        order: drawn ahead of a checkpointed head
+        (``models/detector.py:FasterRCNN.apply_head``)."""
+        return tuple(drop.draw((n, fc.dense.out_features), generator, device)
+                     for drop, fc in ((self.drop6, self.fc6),
+                                      (self.drop7, self.fc7)))
+
+    def forward(self, roi_feats, keep=None, generator=None,
+                remat: bool = False):
         """``keep``: optional (fc6 mask, fc7 mask), bool [N, 512] each, for
-        the two dropouts in training; drawn from ``generator`` when None."""
+        the two dropouts in training; drawn from ``generator`` when None.
+        ``remat``: the head in a checkpoint, the masks drawn before it in
+        the head's order (the recompute cannot restore an explicit
+        generator's state)."""
+        if remat:
+            if keep is None:
+                keep = self.draw_keep(roi_feats.shape[0], generator,
+                                      roi_feats.device)
+            return checkpoint(self, roi_feats, keep)
         k6, k7 = keep if keep is not None else (None, None)
         x = self.drop6(self.fc6(roi_feats), k6, generator)
         x = self.drop7(self.fc7(x), k7, generator)

@@ -22,7 +22,13 @@ forward.  The pool's backward is a CUDA kernel (``wssdl_roi_pool_bwd``,
 ``ops/roi_pool_cuda.py``).  ``Engine.train_step_mil`` is the alternating
 regime's weak step (``_train_step_mil_impl``): the MIL loss alone over weak
 images, with batch-statistics normalisation and the running statistics left
-as they are (``models/layers.py:running_stats_frozen``).
+as they are (``models/layers.py:running_stats_frozen``).  Both training
+steps run under the model's activation remat (``FasterRCNN.remat``; the
+JAX package's default for ResNet) with the same numbers as without it: the
+recompute in the backward replays the running statistics the forward read
+and updates none, so the MIL step's statistics stay frozen although its
+context has exited by then, and the VGG16 head's dropout masks come from
+the engine's generator before the head's checkpoint.
 ``Engine.inference_step_quant`` is the serving step with the int8 model of
 ``Engine.quantize_for_serving`` (``models/quantize.py``; the JAX
 package's ``_inference_quant_impl``): the int8 trunk (the CUDA kernel
