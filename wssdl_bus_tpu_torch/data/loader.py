@@ -9,7 +9,11 @@ from one ``np.random.RandomState`` per layer in the JAX package's order,
 so the same seed gives the same indices and the same blobs in both
 packages.  ``Prefetcher`` runs a layer on a host thread (numpy, PIL and the
 native library only; it never touches CUDA); ``prefetch_iter`` does the
-same for a generator.
+same for a generator.  The worker is a thread that a profiler started
+later does not see, so the ``Prefetcher`` keeps its own clock of each
+batch's assembly (``stamps``, on ``time.time_ns()``'s clock, the one the
+profiler's events carry); what the consumer waits is the span
+``feed_wait`` (``utils/logging.py:span``).
 
 ``slots`` > 1 makes the global batch of a device mesh, as the JAX package
 does: ``slots`` minibatches drawn serially (the cursor, then one
@@ -25,6 +29,8 @@ from __future__ import annotations
 
 import queue
 import threading
+import time
+from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -32,6 +38,10 @@ import numpy as np
 from wssdl_bus_tpu_torch.config import Config
 from wssdl_bus_tpu_torch.data.minibatch import (get_minibatch,
                                                 get_minibatch_joint)
+from wssdl_bus_tpu_torch.utils.logging import span
+
+WINDOW = 100    # recent samples a training loop's clocks keep: the
+                # Prefetcher's stamps, train/solver.py:_StepClock's series
 
 
 class _Cursor:
@@ -257,10 +267,15 @@ class Prefetcher:
     draw position in step with consumption, so a resume re-draws exactly
     the batches the interrupted run never consumed.  Load a state into the
     layer BEFORE constructing the Prefetcher: the worker starts drawing at
-    once."""
+    once.
+
+    ``stamps``: (start, end) of the last ``WINDOW`` batches' ``forward()``
+    on the worker, in the order drawn, in ``time.time_ns()``
+    nanoseconds."""
 
     def __init__(self, layer, depth: int = 2):
         self.layer = layer
+        self.stamps: "deque[tuple[int, int]]" = deque(maxlen=WINDOW)
         self.q: "queue.Queue" = queue.Queue(maxsize=depth)
         self._stop = threading.Event()
         self._error = None
@@ -272,7 +287,9 @@ class Prefetcher:
     def _worker(self):
         while not self._stop.is_set():
             try:
+                start = time.time_ns()
                 blobs = self.layer.forward()
+                self.stamps.append((start, time.time_ns()))
                 state = self._get_state()
             except BaseException as e:  # noqa: BLE001 - relayed to consumer
                 self._error = e
@@ -286,17 +303,19 @@ class Prefetcher:
                     continue
 
     def forward(self) -> dict:
-        while True:
-            if self._error is not None:
-                raise RuntimeError("prefetch worker failed") from self._error
-            try:
-                blobs, state = self.q.get(timeout=0.5)
-                self._consumed_state = state
-                return blobs
-            except queue.Empty:
-                if self._stop.is_set():   # closed with no pending error
-                    raise RuntimeError("prefetcher is closed") from None
-                continue
+        with span("feed_wait"):
+            while True:
+                if self._error is not None:
+                    raise RuntimeError("prefetch worker failed") \
+                        from self._error
+                try:
+                    blobs, state = self.q.get(timeout=0.5)
+                    self._consumed_state = state
+                    return blobs
+                except queue.Empty:
+                    if self._stop.is_set():   # closed with no pending error
+                        raise RuntimeError("prefetcher is closed") from None
+                    continue
 
     def state_dict(self):
         return self._consumed_state

@@ -44,6 +44,8 @@ import torch.utils.checkpoint
 import torch.nn.functional as F
 from torch import nn
 
+from wssdl_bus_tpu_torch.utils.logging import span
+
 
 class BatchRenorm(nn.Module):
     """Batch normalization with renorm correction, as
@@ -160,19 +162,26 @@ class _RenormReplay:
 
 class _ReplayScope:
     """Makes ``replay`` the scope of this thread, recording or replaying;
-    may be entered again (a second backward recomputes again)."""
+    may be entered again (a second backward recomputes again).  A
+    recompute is the span ``recompute`` (``utils/logging.py:span``)."""
 
     def __init__(self, replay: _RenormReplay, replaying: bool):
         self.replay, self.replaying = replay, replaying
-        self.prev = None
+        self.prev = self.span = None
 
     def __enter__(self):
         self.prev = getattr(_REMAT, "scope", None)
         self.replay.replaying, self.replay.pos = self.replaying, 0
         _REMAT.scope = self.replay
+        if self.replaying:
+            self.span = span("recompute")
+            self.span.__enter__()
 
     def __exit__(self, *exc):
         _REMAT.scope = self.prev
+        if self.span is not None:
+            self.span.__exit__(*exc)
+            self.span = None
 
 
 def checkpoint(fn, *args, **kwargs):

@@ -76,6 +76,7 @@ from wssdl_bus_tpu_torch.ops.roi_pool_cuda import (roi_pool_fc,
                                                    roi_pool_grouped_plain)
 from wssdl_bus_tpu_torch.train import losses as L
 from wssdl_bus_tpu_torch.utils import resolve_device
+from wssdl_bus_tpu_torch.utils.logging import span
 
 
 class StepLosses(NamedTuple):
@@ -440,59 +441,74 @@ class Engine:
         n_s, n_ws = self.n_s, self.n_ws
         draws = draws or StepDraws()
         gen = self.generator
-        b = _batch_tensors(batch, self.device)
+        with span("upload"):
+            b = _batch_tensors(batch, self.device)
         self.model.train()
-        feat, rpn_score, rpn_bbox = self._train_trunk(self._batch_data(b))
-        at = anchor_target_layer_joint(
-            b["gt_boxes"], b["num_gt_boxes"], b["im_info"], self.anchors,
-            n_s, uniforms=draws.anchor_u, generator=gen, **self._at_kwargs)
-        props = self._proposals(rpn_score, rpn_bbox, b["im_info"], cfg.TRAIN)
-        samples = proposal_target_layer(
-            props.boxes[:n_s], props.valid[:n_s], b["gt_boxes"][:n_s],
-            b["num_gt_boxes"][:n_s], uniforms=draws.roi_u, generator=gen,
-            include_gt=True, **self._pt_kwargs)
+        with span("prep"):
+            data = self._batch_data(b)
+        with span("trunk"):
+            feat, rpn_score, rpn_bbox = self._train_trunk(data)
+        with span("anchor_targets"):
+            at = anchor_target_layer_joint(
+                b["gt_boxes"], b["num_gt_boxes"], b["im_info"], self.anchors,
+                n_s, uniforms=draws.anchor_u, generator=gen,
+                **self._at_kwargs)
+        with span("proposals"):
+            props = self._proposals(rpn_score, rpn_bbox, b["im_info"],
+                                    cfg.TRAIN)
+        with span("roi_targets"):
+            samples = proposal_target_layer(
+                props.boxes[:n_s], props.valid[:n_s], b["gt_boxes"][:n_s],
+                b["num_gt_boxes"][:n_s], uniforms=draws.roi_u,
+                generator=gen, include_gt=True, **self._pt_kwargs)
         a = self.num_anchors
         r = cfg.TRAIN.BATCH_SIZE
-        sup_pooled = self._pool_for_head(feat[:n_s], samples.rois)
-        ws_pooled = (self._pool_for_head(feat[n_s:], props.boxes[n_s:])
-                     if n_ws else None)
+        with span("pool"):
+            sup_pooled = self._pool_for_head(feat[:n_s], samples.rois)
+            ws_pooled = (self._pool_for_head(feat[n_s:], props.boxes[n_s:])
+                         if n_ws else None)
         cls_ws = None
-        if self.model.backbone == "VGGnet":
-            # the head runs on the two groups separately: it is norm-free,
-            # so this equals one call on their concatenation without
-            # building the [n_s*R + n_ws*P, 25088] operand
-            cls_sup, bbox_sup = self._apply_head(sup_pooled, draws.keep_sup,
+        with span("head"):
+            if self.model.backbone == "VGGnet":
+                # the head runs on the two groups separately: it is
+                # norm-free, so this equals one call on their concatenation
+                # without building the [n_s*R + n_ws*P, 25088] operand
+                cls_sup, bbox_sup = self._apply_head(sup_pooled,
+                                                     draws.keep_sup, gen)
+                if n_ws:
+                    cls_ws, _ = self._apply_head(ws_pooled, draws.keep_ws,
                                                  gen)
+            else:
+                # one call on the concatenation: BatchRenorm's batch
+                # statistics cover every ROI of both groups, the weak
+                # group's invalid proposal slots included (its props.boxes
+                # hold them)
+                cls_all, bbox_all = self._apply_head(
+                    sup_pooled if ws_pooled is None
+                    else torch.cat([sup_pooled, ws_pooled]))
+                cls_sup, bbox_sup = cls_all[:n_s * r], bbox_all[:n_s * r]
+                cls_ws = cls_all[n_s * r:]
+        with span("losses"):
+            labels = samples.labels.reshape(-1)
+            rpn_cls = L.rpn_class_loss(rpn_score, at.labels, a)
+            rpn_box = L.rpn_box_loss(rpn_bbox, at.bbox_targets,
+                                     at.inside_weights, at.outside_weights,
+                                     n_s, a)
+            rcnn_cls = L.rcnn_class_loss(cls_sup, labels)
+            rcnn_box = L.rcnn_box_loss(
+                bbox_sup, samples.bbox_targets.reshape(n_s * r, -1),
+                samples.inside_weights.reshape(n_s * r, -1),
+                samples.outside_weights.reshape(n_s * r, -1), labels)
             if n_ws:
-                cls_ws, _ = self._apply_head(ws_pooled, draws.keep_ws, gen)
-        else:
-            # one call on the concatenation: BatchRenorm's batch statistics
-            # cover every ROI of both groups, the weak group's invalid
-            # proposal slots included (its props.boxes hold them)
-            cls_all, bbox_all = self._apply_head(
-                sup_pooled if ws_pooled is None
-                else torch.cat([sup_pooled, ws_pooled]))
-            cls_sup, bbox_sup = cls_all[:n_s * r], bbox_all[:n_s * r]
-            cls_ws = cls_all[n_s * r:]
-        labels = samples.labels.reshape(-1)
-        rpn_cls = L.rpn_class_loss(rpn_score, at.labels, a)
-        rpn_box = L.rpn_box_loss(rpn_bbox, at.bbox_targets,
-                                 at.inside_weights, at.outside_weights, n_s,
-                                 a)
-        rcnn_cls = L.rcnn_class_loss(cls_sup, labels)
-        rcnn_box = L.rcnn_box_loss(
-            bbox_sup, samples.bbox_targets.reshape(n_s * r, -1),
-            samples.inside_weights.reshape(n_s * r, -1),
-            samples.outside_weights.reshape(n_s * r, -1), labels)
-        if n_ws:
-            mil = self._mil(cls_ws, props.valid[n_s:], b["im_info"][n_s:],
-                            step)
-        else:
-            mil = torch.zeros((), device=self.device)
-        total = rpn_cls + rpn_box + rcnn_cls + rcnn_box
-        wd = L.weight_decay_loss(self.model, cfg.TRAIN.WEIGHT_DECAY)
+                mil = self._mil(cls_ws, props.valid[n_s:],
+                                b["im_info"][n_s:], step)
+            else:
+                mil = torch.zeros((), device=self.device)
+            total = rpn_cls + rpn_box + rcnn_cls + rcnn_box
+            wd = L.weight_decay_loss(self.model, cfg.TRAIN.WEIGHT_DECAY)
+            loss = total + wd + mil
         losses = StepLosses(total, rpn_cls, rpn_box, rcnn_cls, rcnn_box, mil)
-        return total + wd + mil, losses, {
+        return loss, losses, {
             "rpn_cls_score": rpn_score, "anchor_targets": at, "props": props,
             "samples": samples}
 
@@ -502,12 +518,21 @@ class Engine:
         ``get_minibatch_joint`` layout, supervised images first).  The
         gradients of the supervised loss + weight decay and of the MIL loss
         add, as the reference's do, so one backward of their sum serves.
-        -> the step's losses (detached, on the device)."""
-        loss, losses, _ = self.forward_train(batch, step, draws)
-        self.opt.zero_grad()
-        loss.backward()
-        self.opt.step(self.cfg.TRAIN.LEARNING_RATE if lr is None else lr)
-        return StepLosses(*(t.detach() for t in losses))
+        -> the step's losses (detached, on the device).  Each part of the
+        step is a span (``utils/logging.py:span``) inside ``train_step``:
+        ``forward_train``'s nine, ``backward`` (with each block's
+        ``recompute`` under remat) and ``optimizer`` (the moments' reset
+        and the update)."""
+        with span("train_step"):
+            loss, losses, _ = self.forward_train(batch, step, draws)
+            with span("optimizer"):
+                self.opt.zero_grad()
+            with span("backward"):
+                loss.backward()
+            with span("optimizer"):
+                self.opt.step(self.cfg.TRAIN.LEARNING_RATE if lr is None
+                              else lr)
+            return StepLosses(*(t.detach() for t in losses))
 
     def _mil_loss(self, batch: dict, step: int, draws: StepDraws):
         """The weak step's forward: the MIL bag loss over ``batch``'s images,

@@ -50,8 +50,8 @@ import numpy as np
 import torch
 
 from wssdl_bus_tpu_torch.config import Config
-from wssdl_bus_tpu_torch.data.loader import (Prefetcher, RoIDataLayer,
-                                             RoIDataLayerJoint)
+from wssdl_bus_tpu_torch.data.loader import (WINDOW, Prefetcher,
+                                             RoIDataLayer, RoIDataLayerJoint)
 from wssdl_bus_tpu_torch.data.minibatch import get_minibatch
 from wssdl_bus_tpu_torch.evaluate.detect import (apply_nms_per_class,
                                                  unnormalize_bbox_pred)
@@ -70,7 +70,7 @@ from wssdl_bus_tpu_torch.utils.timer import Timer
 _TAGS = ("total", "rpn_loss_cls", "rpn_loss_box", "loss_cls", "loss_box",
          "mil_loss_cls")
 _DRAIN_CAP = 25     # loss reads are drained at least this often
-_WINDOW = 100       # recent samples the step clock keeps of each series
+_WINDOW = WINDOW    # recent samples the step clock keeps of each series
 _SERIES = ("iter_ms_host", "iter_ms_cuda", "feed_ms_host", "upload_bytes",
            "losses")
 

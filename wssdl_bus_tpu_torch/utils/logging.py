@@ -11,15 +11,24 @@ the process (:func:`_tensorboard_without_tensorflow`).
 ``TraceContext`` is the reference's DEBUG_TIMELINE: a ``torch.profiler``
 window (CPU and, on a card, CUDA activity) whose Chrome trace lands under
 ``<output_dir>/torch_trace/``, to view in Perfetto or chrome://tracing.
+``span`` names a part of the host's work in such a trace (and in any other
+profiler's: ``chip_smoke.py --profile``, the benchmark's traced window).
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import sys
 import time
 import types
 import warnings
+
+import torch.autograd.profiler as _autograd_profiler
+from torch._C._profiler import _RecordFunctionFast
+
+SPAN_PREFIX = "wssdl::"
+_OFF = contextlib.nullcontext()
 
 
 def _tensorboard_without_tensorflow() -> None:
@@ -111,3 +120,20 @@ class TraceContext:
                 self.dir, f"trace_{time.time_ns()}.json"))
             self._prof = None
         return False
+
+
+def span(name: str):
+    """A range ``wssdl::<name>`` of the calling thread's work in the trace of
+    whatever profiler is on; while none is, one shared null context, at the
+    cost of a flag test.
+
+    The range is a function-scope ``RecordFunction``, as an operator's is,
+    not ``record_function``'s user scope: the profiler mirrors a user-scope
+    range on the device's timeline as an annotation over the kernels it
+    launched, which a reading of device time would count as device work.
+    A kernel is tied to the range instead through its launch, the runtime
+    call made on the range's thread while it was open (the correlation id
+    both carry)."""
+    if _autograd_profiler._is_profiler_enabled:
+        return _RecordFunctionFast(SPAN_PREFIX + name)
+    return _OFF
