@@ -124,10 +124,15 @@ directory without the port beside it, phase 0 fails so):
      launch on the shared-memory path) with ms/image by stage and peak
      memory at PyTorch's defaults; 3 combined steps and 1 MIL step (1 + 2
      + 2 launches of #1 / #3 / #4 a combined step, 1 + 1 + 1 a MIL step;
-     every parameter moved, every running statistic moved by the combined
-     steps and bit for bit unchanged by the MIL step; ms/step by CUDA
-     events and peak memory); the served batch and one combined step
-     through the kernels and with ``plain_ops=True`` (as phase 6, running
+     #9's three forward kernels for each norm and each recompute of one
+     and three backward kernels for each norm with a gradient, a step, by
+     kernel as well; every parameter moved but the betas whose exact
+     gradient is zero (``models/resnet.py:betas_without_gradient``),
+     whose gradient in the last combined step is under 1e-3 of their
+     norm's gamma's, every running statistic moved by the combined steps
+     and bit for bit unchanged by the MIL step; ms/step by CUDA events and
+     peak memory); the served batch and one combined step through the
+     kernels and with ``plain_ops=True`` (as phase 6, running
      statistics among the compared tensors).  ResNet-50 GN (bottleneck
      blocks, GroupNorm, C = 1024): batch-8 serving and one combined step.
      Then ``main.train --network Resnet_train`` (18,
@@ -224,9 +229,22 @@ directory without the port beside it, phase 0 fails so):
      --mesh_data 2 --batch_size 8``, whose all_boxes must equal the
      single-device ``main.test`` at batch 4 (logs
      ``chiprun_out/mesh_*.log``);
+ 18. (after phase 2) the training-mode BatchRenorm kernels
+     (``csrc/batch_renorm.cu``, port-only) with the ReLU at the training
+     cells' shapes (the head's [16512, 2048, 4, 4] and [16512, 1024, 7, 7],
+     group0's [12, 256, 152, 224], conv0's [12, 64, 304, 448]): against
+     the plain version (the per-channel vectors, y, and dx from the
+     kernels' own vectors, each within 1e-5 of its largest value) and a
+     second run bit for bit; CUDA-event ms of the forward and the
+     backward beside their bounds (12 / 20 bytes an element, and 8 / 12
+     read once, at 3.35 TB/s), the plain version's and cuDNN's batch norm
+     + ReLU (its forward alone, and forward and backward);
  12. a ``{"kernels": [...]}`` line (#3 as ``roi_pool_grouped``, its
      launches from the ResNet paths; the int8 conv as ``int8_conv``, its
-     numbers those of the VGG16 batch-8 int8 step; every main path's
+     numbers those of the VGG16 batch-8 int8 step; #9 as
+     ``batch_renorm_train``, its launches from every ResNet BN training
+     path, 3 forward kernels for each norm and each recompute of one and
+     3 backward kernels for each norm, a step; every main path's
      launches in ``launches_by_path``, phase 16's as
      ``remat_<model>_<choice>`` and ``..._mil``, phase 17's as
      ``mesh_<model>_<d>x<m>``, summed over the ranks), then the last line
@@ -1356,8 +1374,122 @@ def check_train_parity(model, cfg, canvas, batch, device="cuda"):
     return {"loss_rel_err": loss_err, "param_abs_err": param_err}
 
 
+# The training cells' BatchRenorm shapes (N, C, H, W) that phase 18 times:
+# the head's output (group3_norm) and group0's wide norms, then the head's
+# largest input and conv0's norm
+RENORM_SHAPES = {"head_2048x4x4": (16512, 2048, 4, 4),
+                 "trunk_256x152x224": (12, 256, 152, 224),
+                 "head_1024x7x7": (16512, 1024, 7, 7),
+                 "conv0_64x304x448": (12, 64, 304, 448)}
+RENORM_FWD_BYTES = 12   # an element: x read twice, y written
+RENORM_BWD_BYTES = 20   # x and dy read twice, dx written
+
+
+def check_batch_renorm(seed: int = 11, iters: int = 20) -> dict:
+    """Phase 18: the training-mode BatchRenorm kernels (csrc/
+    batch_renorm.cu, #9) at the training cells' shapes, with the ReLU:
+    against the plain version (the per-channel vectors, y, and dx from the
+    kernels' own vectors: largest error over the largest value), a second
+    run bit for bit, then CUDA-event ms of the forward and the backward
+    beside their bounds (the design's 12 / 20 bytes an element and the
+    read-once 8 / 12 at 3.35 TB/s), the plain version's and cuDNN's
+    batch norm + ReLU (``F.batch_norm(training=True)``, a library
+    yardstick the port never calls), its forward alone beside #9's
+    forward and its forward and backward beside #9's two."""
+    import torch
+    import torch.nn.functional as F
+    from wssdl_bus_tpu_torch.ops import batch_renorm_cuda as brc
+    from wssdl_bus_tpu_torch.ops.batch_renorm import (
+        batch_renorm_backward_plain, batch_renorm_forward_plain)
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+    out = {}
+    for tag, shape in RENORM_SHAPES.items():
+        c = shape[1]
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        x = (torch.randn(shape, generator=g, device="cuda") * 2 + 0.7) \
+            .contiguous(memory_format=torch.channels_last)
+        dy = torch.randn(shape, generator=g, device="cuda") \
+            .contiguous(memory_format=torch.channels_last)
+        gamma = torch.rand(c, generator=g, device="cuda") + 0.5
+        beta = torch.randn(c, generator=g, device="cuda")
+        rm = torch.randn(c, generator=g, device="cuda")
+        rv = torch.rand(c, generator=g, device="cuda") + 0.5
+
+        def fwd():
+            return brc._forward_cuda(x, gamma, beta, rm, rv, False, 0.99,
+                                     1e-3, True)
+
+        y, vecs = fwd()
+        dx, _, _ = brc._backward_cuda(x, dy, vecs, True)
+        y2, vecs2 = fwd()
+        dx2, _, _ = brc._backward_cuda(x, dy, vecs2, True)
+        torch.cuda.synchronize()
+        _check(torch.equal(y, y2) and torch.equal(dx, dx2),
+               f"batch_renorm {tag}: a second run differs")
+        del y2, dx2
+        py, pvecs = batch_renorm_forward_plain(x, gamma, beta, rm, rv, False,
+                                               0.99, 1e-3, True)
+        err = {"vecs": max(rel(a, b) for a, b in zip(vecs, pvecs)),
+               "y": rel(y, py)}
+        del py
+        err["dx"] = rel(dx, batch_renorm_backward_plain(x, dy, vecs,
+                                                        True)[0])
+        _check(max(err.values()) < 1e-5, f"batch_renorm {tag}: errors {err}")
+        del y, dx
+        el = x.numel()
+        row = {"shape": list(shape), "max_rel_err": err,
+               "ms": cuda_ms(fwd, iters),
+               "bwd_ms": cuda_ms(lambda: brc._backward_cuda(x, dy, vecs,
+                                                            True), iters),
+               "bound_ms": RENORM_FWD_BYTES * el / HBM_BYTES_PER_S * 1e3,
+               "bwd_bound_ms": RENORM_BWD_BYTES * el / HBM_BYTES_PER_S * 1e3,
+               "read_once_bound_ms": 8 * el / HBM_BYTES_PER_S * 1e3,
+               "bwd_read_once_bound_ms": 12 * el / HBM_BYTES_PER_S * 1e3,
+               "bound_by": "bytes"}
+        row["plain_ms"] = cuda_ms(lambda: batch_renorm_forward_plain(
+            x, gamma, beta, rm, rv, False, 0.99, 1e-3, True), 3)
+        row["bwd_plain_ms"] = cuda_ms(lambda: batch_renorm_backward_plain(
+            x, dy, vecs, True), 3)
+        xl = x.detach().requires_grad_(True)
+
+        def library_fwd():
+            with torch.no_grad():
+                F.relu(F.batch_norm(x, None, None, gamma, beta, True, 0.01,
+                                    1e-3))
+
+        def library():
+            yl = F.relu(F.batch_norm(xl, None, None, gamma, beta, True, 0.01,
+                                     1e-3))
+            yl.backward(dy)
+
+        row["library_ms"] = cuda_ms(library_fwd, 3)
+        row["library_fwd_bwd_ms"] = cuda_ms(library, 3)
+        row["fwd_bwd_ms"] = row["ms"] + row["bwd_ms"]
+        row["fraction_of_bound"] = row["bound_ms"] / row["ms"]
+        row["bwd_fraction_of_bound"] = row["bwd_bound_ms"] / row["bwd_ms"]
+        out[tag] = row
+        print(f"[batch_renorm] {tag} {shape}: forward {row['ms']:.4f} ms "
+              f"(bound {row['bound_ms']:.4f}, "
+              f"{100 * row['fraction_of_bound']:.1f}%; read-once "
+              f"{row['read_once_bound_ms']:.4f}), backward "
+              f"{row['bwd_ms']:.4f} ms (bound {row['bwd_bound_ms']:.4f}, "
+              f"{100 * row['bwd_fraction_of_bound']:.1f}%; read-once "
+              f"{row['bwd_read_once_bound_ms']:.4f}); plain "
+              f"{row['plain_ms']:.3f} + {row['bwd_plain_ms']:.3f} ms; cuDNN "
+              f"batch norm + ReLU forward {row['library_ms']:.3f} ms, "
+              f"forward and backward {row['library_fwd_bwd_ms']:.3f} ms "
+              f"(#9 {row['fwd_bwd_ms']:.4f}); errors {err}", flush=True)
+        del x, dy, xl, vecs, pvecs
+        torch.cuda.empty_cache()
+    return out
+
+
 def kernel_wrappers() -> dict:
     """Every kernel wrapper of the port by name; each counts its launches."""
+    from wssdl_bus_tpu_torch.ops.batch_renorm_cuda import batch_renorm_train
     from wssdl_bus_tpu_torch.ops.conv1_cuda import vgg_stem_fused
     from wssdl_bus_tpu_torch.ops.conv2_pool_cuda import vgg_conv2_pool
     from wssdl_bus_tpu_torch.ops.int8_conv_cuda import int8_conv
@@ -1369,14 +1501,15 @@ def kernel_wrappers() -> dict:
     return {f.__name__: f for f in (
         nms_keep, roi_pool_fc, roi_pool_grouped, roi_pool_fc_backward,
         roi_pool_fc_bf16, roi_pool_fc_backward_bf16, vgg_stem_fused,
-        vgg_conv2_pool, int8_conv)}
+        vgg_conv2_pool, int8_conv, batch_renorm_train)}
 
 
 def reset_counts():
     for f in kernel_wrappers().values():
         f.launches = 0
-        if hasattr(f, "paths"):
-            f.paths = dict.fromkeys(f.paths, 0)
+        for by in ("paths", "by_kernel"):
+            if hasattr(f, by):
+                setattr(f, by, dict.fromkeys(getattr(f, by), 0))
 
 
 def read_counts() -> dict:
@@ -1397,6 +1530,55 @@ def check_pool_paths(counts: dict, what: str) -> dict:
                f"{counts[name]} on the shared-memory path")
     POOL_PATHS[what] = paths
     return paths
+
+
+def renorm_steps(model, mil: bool = False) -> tuple[int, int]:
+    """(forwards, backwards) of #9 in one training step of ``model``, a
+    combined step or, with ``mil``, a MIL step (each runs the trunk and the
+    head once): a forward for each training-mode BatchRenorm and one more
+    for each inside a residual block of a part under remat (its
+    checkpoint's recompute); a backward for each, but in a MIL step for
+    the RPN's (``trunk.rpn_*``), which only its proposals read."""
+    from wssdl_bus_tpu_torch.models.layers import BatchRenorm
+    from wssdl_bus_tpu_torch.models.resnet import _Block
+
+    def norms(*ms):
+        return sum(isinstance(x, BatchRenorm) for m in ms
+                   for x in m.modules())
+
+    recomputed = sum(norms(b) for part in ("trunk", "head")
+                     if model.remat is True or model.remat == part
+                     for b in getattr(model, part).modules()
+                     if isinstance(b, _Block))
+    backward = (norms(model.trunk.backbone, model.head) if mil
+                else norms(model))
+    return norms(model) + recomputed, backward
+
+
+def renorm_by_kernel(model, combined: int = 1, mil: int = 0) -> dict:
+    """#9's launches by kernel in ``combined`` combined and ``mil`` MIL
+    steps of ``model``."""
+    from wssdl_bus_tpu_torch.ops.batch_renorm_cuda import KERNELS
+
+    (fc, bc), (fm, bm) = renorm_steps(model), renorm_steps(model, True)
+    fwd, bwd = combined * fc + mil * fm, combined * bc + mil * bm
+    return dict(zip(KERNELS, [fwd] * 3 + [bwd] * 3))
+
+
+def renorm_want(model, combined: int = 1, mil: int = 0) -> dict:
+    """#9's launches in those steps, as check_counts takes them."""
+    return {"batch_renorm_train": sum(renorm_by_kernel(
+        model, combined, mil).values())}
+
+
+def check_renorm_kernels(model, combined: int, mil: int, what: str):
+    """#9's launches by kernel, read just after the run, are those of
+    ``combined`` combined and ``mil`` MIL steps of ``model``."""
+    from wssdl_bus_tpu_torch.ops.batch_renorm_cuda import batch_renorm_train
+
+    want = renorm_by_kernel(model, combined, mil)
+    _check(batch_renorm_train.by_kernel == want, f"{what}: #9's launches "
+           f"by kernel {batch_renorm_train.by_kernel}, expected {want}")
 
 
 def check_counts(counts: dict, want: dict, what: str):
@@ -2501,14 +2683,19 @@ def resnet_serve(tag, eng, requests, smi, batches=(1, BATCH)):
             "proposals": [len(s) for s, _, _ in out]}
 
 
+ROUNDING_REL = 1e-3   # a zero-gradient beta's |dbeta| over |dgamma|
+
+
 def resnet_train(tag, teng, joint, weak, smi, mil: bool = True):
     """Combined steps on ``joint`` (and, with ``mil``, one MIL step on
     ``weak``) at full width and the default TRAIN budgets, the counters
-    around them; finite losses, every parameter moved, the running
-    statistics moved by the combined steps and left bit for bit by the MIL
-    step; then ms/step by CUDA events and peak memory at PyTorch's
-    defaults."""
+    around them; finite losses, every parameter moved but the betas
+    without gradient, whose gradient is rounding, the running statistics
+    moved by the combined steps and left bit for bit by the MIL step; then
+    ms/step by CUDA events and peak memory at PyTorch's defaults."""
     import torch
+
+    from wssdl_bus_tpu_torch.models.resnet import betas_without_gradient
 
     before = {k: v.clone() for k, v in teng.model.state_dict().items()}
     stats_keys = [k for k in before if k.endswith((".mean", ".var"))]
@@ -2522,6 +2709,11 @@ def resnet_train(tag, teng, joint, weak, smi, mil: bool = True):
                f"{losses[-1]}")
     after_combined = {k: v.clone() for k, v in teng.model.state_dict().items()
                       if k in stats_keys}
+    # the zero-gradient betas' last gradient, over their norm's gamma's
+    params = dict(teng.model.named_parameters())
+    still_betas = betas_without_gradient(teng.model)
+    rounding = {k: float(params[k].grad.abs().max() / params[
+        k[:-len("beta")] + "gamma"].grad.abs().max()) for k in still_betas}
     mil_loss = None
     if mil:
         mil_loss = float(teng.train_step_mil(weak, step=TRAIN_STEP))
@@ -2531,13 +2723,19 @@ def resnet_train(tag, teng, joint, weak, smi, mil: bool = True):
     peak = torch.cuda.max_memory_allocated()
     n = len(joint) + int(mil)
     want = {"nms_keep": n, "roi_pool_grouped": 2 * len(joint) + int(mil),
-            "roi_pool_fc_backward": 2 * len(joint) + int(mil)}
+            "roi_pool_fc_backward": 2 * len(joint) + int(mil),
+            **renorm_want(teng.model, len(joint), int(mil))}
     check_counts(counts, want, f"{tag} training")
+    check_renorm_kernels(teng.model, len(joint), int(mil),
+                         f"{tag} training")
     paths = check_pool_paths(counts, f"train_{tag}")
     after = teng.model.state_dict()
     unmoved = [k for k in after if k not in stats_keys
-               and torch.equal(before[k], after[k])]
+               and k not in still_betas and torch.equal(before[k], after[k])]
     _check(not unmoved, f"{tag}: parameters that did not move: {unmoved[:5]}")
+    _check(max(rounding.values(), default=0.0) <= ROUNDING_REL,
+           f"{tag}: betas without gradient whose gradient is more than "
+           f"rounding: {rounding}")
     still = [k for k in stats_keys if torch.equal(before[k],
                                                   after_combined[k])]
     _check(not still, f"{tag}: running statistics the combined steps did "
@@ -2553,8 +2751,11 @@ def resnet_train(tag, teng, joint, weak, smi, mil: bool = True):
           f"{len(joint)} combined steps"
           f"{' + 1 MIL step' if mil else ''}; launches {counts} (expected "
           f"{want}); #3 by path {paths['roi_pool_grouped']}; losses finite "
-          f"(last {np.round(losses[-1], 4).tolist()}, MIL {mil_loss}); all "
-          f"{len(after) - len(stats_keys)} parameters moved; "
+          f"(last {np.round(losses[-1], 4).tolist()}, MIL {mil_loss}); "
+          f"{len(after) - len(stats_keys) - len(still_betas)} parameters "
+          f"moved, {len(still_betas)} betas without gradient at rounding "
+          f"(largest |dbeta| / |dgamma| "
+          f"{max(rounding.values(), default=0.0):.3g}); "
           f"{len(stats_keys)} running statistics moved by the combined "
           f"steps{' and bit for bit unchanged by the MIL step' if mil else ''}"
           f"; combined step {step_ms:.3f} ms by CUDA events (3 more steps, "
@@ -2640,7 +2841,8 @@ def resnet_cli(tmpdir, data, out_dir, smi) -> dict:
                f"main.train (ResNet) did not load the {n_arrays} arrays")
     n_it = RESNET_CLI_ITERS
     want_a = {"nms_keep": n_it + 2, "roi_pool_grouped": 2 * n_it + 2,
-              "roi_pool_fc_backward": 2 * n_it}
+              "roi_pool_fc_backward": 2 * n_it,
+              **renorm_want(sol_a.eng.model, n_it)}
     check_counts(counts_a, want_a, "main.train (ResNet)")
     check_pool_paths(counts_a, "resnet_train_cli")
     # #3 at the shape of the evaluation's launches, against its plain version
@@ -2661,7 +2863,8 @@ def resnet_cli(tmpdir, data, out_dir, smi) -> dict:
                                     argv(out_b, "--resume"), log("resume"))
     _check(sol_b.start_iter == 2, f"resume started at {sol_b.start_iter}")
     check_counts(counts_b, {"nms_keep": 3, "roi_pool_grouped": 4,
-                            "roi_pool_fc_backward": 2},
+                            "roi_pool_fc_backward": 2,
+                            **renorm_want(sol_b.eng.model, n_it - 2)},
                  "main.train --resume (ResNet)")
     resume = same_snapshot(os.path.join(out_a, snap),
                            os.path.join(out_b, snap))
@@ -3125,7 +3328,8 @@ def bf16_paths(tag, make, cfg, canvas, tcanvas, joint, requests, net,
     torch.cuda.synchronize()
     counts_t = read_counts()
     check_counts(counts_t, {"nms_keep": 1, pool: 2,
-                            "roi_pool_fc_backward": 2}, f"{tag} bf16 step")
+                            "roi_pool_fc_backward": 2,
+                            **renorm_want(t16.model)}, f"{tag} bf16 step")
     losses = [float(x) for x in ls]
     _check(np.isfinite(losses).all(), f"{tag} bf16 step: losses {losses}")
     _check(all(v.dtype == torch.float32
@@ -3839,7 +4043,8 @@ def remat_cell(tag, choice, make, cfg, canvas, joint, weak, smi,
         counts = read_counts()
         peak_first = torch.cuda.max_memory_allocated()
         check_counts(counts, {"nms_keep": 1, pool: 2,
-                              "roi_pool_fc_backward": 2},
+                              "roi_pool_fc_backward": 2,
+                              **renorm_want(teng.model)},
                      f"{path} combined step")
         check_pool_paths(counts, path)
         after = _train_state(teng)
@@ -3848,7 +4053,8 @@ def remat_cell(tag, choice, make, cfg, canvas, joint, weak, smi,
         torch.cuda.synchronize()
         counts_mil = read_counts()
         check_counts(counts_mil, {"nms_keep": 1, pool: 1,
-                                  "roi_pool_fc_backward": 1},
+                                  "roi_pool_fc_backward": 1,
+                                  **renorm_want(teng.model, 0, 1)},
                      f"{path} MIL step")
         check_pool_paths(counts_mil, f"{path}_mil")
         after_mil = _train_state(teng)
@@ -4290,20 +4496,21 @@ def run_mesh(vgg, rst, tmpdir: str, data: str, out_dir: str,
 
     t_phase = time.perf_counter()
     cfg, canvas, joint, weak = vgg
-    weights = {}
+    weights, renorm = {}, {}
     for net in ("VGGnet", "Resnet"):
         model = (he_init_(build_detector("VGGnet_train", device="cuda"), 0,
                           input_scale=64.0) if net == "VGGnet" else
                  resnet_model(RESNET_NET["train"], 18, "BN", remat=None))
         weights[net] = os.path.join(tmpdir, f"mesh_{net}.pt")
         torch.save(model.state_dict(), weights[net])
+        renorm[net] = renorm_want(model, 1, 1)  # a combined + a MIL step
         del model
     torch.cuda.empty_cache()
     out = {"launches": {}, "readings": {}}
     per_rank = {"VGGnet": {"nms_keep": 2, "roi_pool_fc": 3,
-                           "roi_pool_fc_backward": 3},
+                           "roi_pool_fc_backward": 3, **renorm["VGGnet"]},
                 "Resnet": {"nms_keep": 2, "roi_pool_grouped": 3,
-                           "roi_pool_fc_backward": 3}}
+                           "roi_pool_fc_backward": 3, **renorm["Resnet"]}}
     for tag, net, shape, check in MESH_CELLS:
         n_data, n_model = shape
         j, w = (joint, weak) if net == "VGGnet" else (rst["joint"],
@@ -4417,6 +4624,10 @@ def main() -> int:
     _build.build_all(verbose=True)
     print(f"[build] {len(_build.SOURCES)} sources built for sm_90a in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    # phase 18: the BatchRenorm kernels
+    phase("18 (BatchRenorm kernels)")
+    renorm = check_batch_renorm()
 
     net = "VGGnet_test"
     cfg = Config()
@@ -4758,6 +4969,15 @@ def main() -> int:
         stem_entry("vgg_conv2_pool", "wssdl_bus_tpu_torch/csrc/conv2_pool.cu",
                    "wssdl_bus_tpu/ops/conv2_pool_pallas.py:196"),
         int8_entry(precision["int8"]),
+        dict(name="batch_renorm_train", route="cuda",
+             source="wssdl_bus_tpu_torch/csrc/batch_renorm.cu",
+             replaces=None, library="cudnn batch norm + relu",
+             **launches("batch_renorm_train"),
+             **{k: renorm["head_2048x4x4"][k] for k in (
+                 "max_rel_err", "ms", "bwd_ms", "fwd_bwd_ms", "plain_ms",
+                 "bwd_plain_ms", "bound_ms", "bwd_bound_ms", "bound_by",
+                 "library_ms", "library_fwd_bwd_ms")},
+             per_shape=renorm),
     ]
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"serving": {str(b): v for b, v in perf.items()},

@@ -12,6 +12,10 @@ import numpy as np
 import pytest
 import torch
 
+from wssdl_bus_tpu_torch.ops import batch_renorm_cuda
+from wssdl_bus_tpu_torch.ops.batch_renorm import (batch_renorm_backward_plain,
+                                                  batch_renorm_forward_plain)
+from wssdl_bus_tpu_torch.ops.batch_renorm_cuda import batch_renorm_train
 from wssdl_bus_tpu_torch.ops.conv1 import vgg_stem_plain
 from wssdl_bus_tpu_torch.ops.conv1_cuda import vgg_stem_fused
 from wssdl_bus_tpu_torch.ops.conv2_pool import vgg_conv2_pool_plain
@@ -724,3 +728,151 @@ def test_int8_conv_kernel_matches_plain(cuda, k, stride, cin, cout, b, h, w,
                                        cout)
     assert got.dtype == (torch.int8 if requant else torch.float32)
     assert torch.equal(got, want)
+
+
+def _renorm_inputs(cuda, shape, seed, offset=0):
+    """x and dy [N, C, H, W] channels_last (``offset`` floats into their
+    storage, to misalign them), gamma, beta and running statistics."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    n, c, h, w = shape
+
+    def nhwc(scale, shift):
+        flat = torch.randn(offset + n * h * w * c, generator=g,
+                           device=cuda) * scale + shift
+        return flat[offset:].view(n, h, w, c).permute(0, 3, 1, 2)
+
+    x, dy = nhwc(2.0, 0.7), nhwc(1.0, 0.0)
+    gamma = torch.rand(c, generator=g, device=cuda) + 0.5
+    beta = torch.randn(c, generator=g, device=cuda)
+    mean = torch.randn(c, generator=g, device=cuda)
+    var = torch.rand(c, generator=g, device=cuda) + 0.5
+    return x, dy, gamma, beta, mean, var
+
+
+def _close(got, want, dims=None, rtol=1e-5):
+    """Within ``rtol`` of the largest value (of each channel's terms for
+    sums, ``dims``): f32 sums taken in another order."""
+    scale = want.abs().max() if dims is None else dims
+    torch.testing.assert_close(got, want, rtol=rtol,
+                               atol=float(rtol * scale.max()))
+
+
+@pytest.mark.parametrize("shape,offset", [
+    ((12, 64, 304, 448), 0),     # conv0's norm
+    ((12, 256, 152, 224), 0),    # group0's wide norms
+    ((12, 1024, 38, 56), 0),     # group2's output, group2_norm
+    ((16512, 1024, 7, 7), 0),    # the head's block0 input
+    ((16512, 2048, 4, 4), 0),    # the head's output, group3_norm
+    ((2, 64, 9, 11), 0),         # rows not a multiple of a tile
+    ((5, 64, 1, 1), 0),          # M = 1 spatial
+    ((1, 64, 1, 1), 0),          # one row: var 0
+    ((3, 6, 5, 5), 0),           # C % 4 != 0: a channel a thread
+    ((7, 100, 13, 3), 0),
+    ((4, 64, 17, 19), 1),        # misaligned: a channel a thread
+])
+@pytest.mark.parametrize("relu", [False, True], ids=["norm", "norm_relu"])
+def test_batch_renorm_kernels_match_plain(cuda, shape, offset, relu):
+    """The forward kernels against the plain version: the six per-channel
+    vectors, the output and the updated running statistics within 1e-5 of
+    their largest value (the moments summed in another order); the
+    backward kernels against the plain backward given the kernels' own
+    vectors (so the same ReLU mask): dx within 1e-5 of its largest,
+    dgamma and dbeta within 1e-5 of each channel's sum of absolute terms.
+    A second run gives the same bits; 3 + 3 launches."""
+    x, dy, gamma, beta, mean, var = _renorm_inputs(cuda, shape, 1, offset)
+    assert x.is_contiguous(memory_format=torch.channels_last)
+    runs = []
+    for _ in range(2):
+        rm, rv = mean.clone(), var.clone()
+        before = (batch_renorm_train.launches,
+                  dict(batch_renorm_train.by_kernel))
+        y, vecs = batch_renorm_cuda._forward_cuda(x, gamma, beta, rm, rv,
+                                                  True, 0.99, 1e-3, relu)
+        grads = batch_renorm_cuda._backward_cuda(x, dy, vecs, relu)
+        torch.cuda.synchronize()
+        assert batch_renorm_train.launches - before[0] == 6
+        assert {k: v - before[1][k] for k, v in
+                batch_renorm_train.by_kernel.items()} == dict.fromkeys(
+                    batch_renorm_cuda.KERNELS, 1)
+        runs.append((y, vecs, rm, rv) + grads)
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+    y, vecs, rm, rv, dx, dgamma, dbeta = runs.pop(0)
+    del runs
+    assert y.is_contiguous(memory_format=torch.channels_last)
+    assert dx.is_contiguous(memory_format=torch.channels_last)
+    prm, prv = mean.clone(), var.clone()
+    want_y, want_vecs = batch_renorm_forward_plain(
+        x, gamma, beta, prm, prv, True, 0.99, 1e-3, relu)
+    for a, b in zip(vecs, want_vecs):
+        _close(a, b)
+    _close(y, want_y)
+    _close(rm, prm)
+    _close(rv, prv)
+    want = batch_renorm_backward_plain(x, dy, vecs, relu)
+    _close(dx, want[0])
+    axes = (0, 2, 3)
+    xhat = (x - vecs[0].view(1, -1, 1, 1)) * vecs[1].view(1, -1, 1, 1)
+    terms = (dy.abs() * (1 + xhat.abs())).sum(axes)
+    _close(dgamma, want[1], terms)
+    _close(dbeta, want[2], terms)
+
+
+def test_batch_renorm_kernels_refuse_what_they_do_not_take(cuda):
+    """A CUDA input must be a channels_last f32 4-D tensor: anything else
+    raises, with no launch."""
+    x, _, gamma, beta, mean, var = _renorm_inputs(cuda, (2, 8, 5, 5), 2)
+    before = (batch_renorm_train.launches,
+              dict(batch_renorm_train.by_kernel))
+    with pytest.raises(ValueError, match="channels_last"):
+        batch_renorm_train(x.contiguous(), gamma, beta, mean, var)
+    with pytest.raises(TypeError, match="f32"):
+        batch_renorm_train(x.to(torch.bfloat16), gamma, beta, mean, var)
+    with pytest.raises(ValueError, match="4-D"):
+        batch_renorm_train(x[:, :, 0], gamma, beta, mean, var)
+    with pytest.raises(ValueError, match="gamma"):
+        batch_renorm_train(x, gamma[:4], beta, mean, var)
+    assert (batch_renorm_train.launches,
+            batch_renorm_train.by_kernel) == before
+
+
+def test_resnet50_bn_remat_step_runs_every_norm_through_the_kernels(cuda):
+    """A ResNet-50 BN forward and backward under full remat (the trunk with
+    its RPN conv on a 128 x 160 image, the head on 16 ROIs): every
+    BatchRenorm's forward launches the three forward kernels once in the
+    first run and once more in its block's recompute (the 67 norms inside
+    residual blocks), every backward the three backward kernels once;
+    none takes the plain version."""
+    from unittest import mock
+
+    from wssdl_bus_tpu_torch.models.detector import build_detector
+    from wssdl_bus_tpu_torch.models.layers import BatchRenorm
+    from wssdl_bus_tpu_torch.models.resnet import _Block
+
+    model = build_detector("Resnet_train", device=cuda, depth=50,
+                           norm="BN").train()
+    norms = [m for m in model.modules() if isinstance(m, BatchRenorm)]
+    in_blocks = {id(n) for b in model.modules() if isinstance(b, _Block)
+                 for n in b.modules() if isinstance(n, BatchRenorm)}
+    assert (len(norms), len(in_blocks)) == (71, 67)   # 70 + the RPN conv's
+    g = torch.Generator(device=cuda).manual_seed(3)
+    data = torch.randn(1, 128, 160, 3, generator=g, device=cuda)
+    rois = torch.randn(16, 7, 7, 1024, generator=g, device=cuda)
+    before = (batch_renorm_train.launches,
+              dict(batch_renorm_train.by_kernel))
+    with mock.patch.object(batch_renorm_cuda, "batch_renorm_forward_plain",
+                           side_effect=AssertionError("plain forward")), \
+            mock.patch.object(batch_renorm_cuda,
+                              "batch_renorm_backward_plain",
+                              side_effect=AssertionError("plain backward")):
+        outs = model.trunk(data, remat=True) + model.head(rois, remat=True)
+        sum((o.float() ** 2).mean() for o in outs).backward()
+    torch.cuda.synchronize()
+    got = {k: v - before[1][k]
+           for k, v in batch_renorm_train.by_kernel.items()}
+    fwd, bwd = len(norms) + len(in_blocks), len(norms)
+    assert got == {"stats": fwd, "finalize": fwd, "apply": fwd,
+                   "grad_sums": bwd, "grad_finalize": bwd, "grad_x": bwd}
+    assert batch_renorm_train.launches - before[0] == 3 * (fwd + bwd)
+    assert all(n.gamma.grad is not None and torch.isfinite(n.gamma.grad)
+               .all() for n in norms)

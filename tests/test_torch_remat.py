@@ -307,6 +307,37 @@ def test_renorm_frozen_stats_stay_frozen_in_the_recompute():
     assert torch.equal(got_s[0], m.mean) and torch.equal(got_s[1], m.var)
 
 
+@pytest.mark.parametrize("frozen", [False, True], ids=["update", "frozen"])
+def test_renorm_relu_recompute_reads_the_statistics_the_forward_read(frozen):
+    """The fused norm + ReLU (``BatchRenorm(x, relu=True)``, the route of
+    every preact and of every conv's norm but the last of a block) under
+    ``models/layers.py:checkpoint``: the recompute runs the same forward
+    with the statistics its first run read and updates nothing, so the
+    gradients and the running statistics (updated once a step, or not at
+    all under ``running_stats_frozen``) equal the run without a checkpoint
+    bit for bit."""
+    from wssdl_bus_tpu_torch.ops import batch_renorm_cuda
+
+    m, x, w = _renorm_case()
+
+    def fused(mm, xx):
+        return mm(xx, relu=True)
+
+    want_g, want_s = _renorm_run(m, x, w, fused, frozen)
+    fwd = batch_renorm_cuda.batch_renorm_forward_plain
+    with mock.patch.object(batch_renorm_cuda, "batch_renorm_forward_plain",
+                           side_effect=fwd) as spy:
+        got_g, got_s = _renorm_run(
+            m, x, w, lambda mm, xx: checkpoint(fused, mm, xx), frozen)
+    # the first run updates (unless frozen), the recompute never
+    assert [c.args[5] for c in spy.call_args_list] == [not frozen, False]
+    for a, b in zip(got_g + got_s, want_g + want_s):
+        assert torch.equal(a, b)
+    assert torch.equal(got_s[0], m.mean) == frozen
+    plain_g, _ = _renorm_run(m, x, w, lambda mm, xx: mm(xx), frozen)
+    assert not torch.equal(plain_g[0], got_g[0])     # the ReLU is in it
+
+
 def test_remat_applies_in_training_with_gradients_only():
     """Eval mode, ``torch.no_grad`` and ``inference_mode`` run no
     checkpoint (and so record nothing): the serving and evaluation paths

@@ -44,6 +44,7 @@ import torch.utils.checkpoint
 import torch.nn.functional as F
 from torch import nn
 
+from wssdl_bus_tpu_torch.ops.batch_renorm_cuda import batch_renorm_train
 from wssdl_bus_tpu_torch.utils.logging import span
 
 
@@ -59,9 +60,12 @@ class BatchRenorm(nn.Module):
     and carry no gradient; the running var takes the biased batch var.  The
     running statistics update in place unless :attr:`update_stats` is False
     (:func:`running_stats_frozen`), and never in the recompute of a
-    :func:`checkpoint`, which reads the statistics its first run read.  In
-    eval mode the output is ``(x - ra_mean) * rsqrt(ra_var + eps) * gamma
-    + beta``."""
+    :func:`checkpoint`, which reads the statistics its first run read.  The
+    training forward and its backward, with the ReLU that follows when
+    ``relu``, are ``ops/batch_renorm_cuda.py:batch_renorm_train`` (CUDA
+    kernels on the card, their plain version on the CPU).  In eval mode
+    the output is ``(x - ra_mean) * rsqrt(ra_var + eps) * gamma +
+    beta``."""
 
     def __init__(self, channels: int, momentum: float = 0.99,
                  epsilon: float = 1e-3):
@@ -74,33 +78,22 @@ class BatchRenorm(nn.Module):
         self.register_buffer("mean", torch.zeros(channels))
         self.register_buffer("var", torch.ones(channels))
 
-    def forward(self, x):
+    def forward(self, x, relu: bool = False):
+        """``relu``: a ReLU after the norm, in the training kernels' passes
+        (``ops/batch_renorm_cuda.py:batch_renorm_train``)."""
         x = x.float()       # statistics in f32 under a bf16 compute dtype
-        shape = (1, -1) + (1,) * (x.ndim - 2)
-        gamma, beta = self.gamma.view(shape), self.beta.view(shape)
         if not self.training:
+            shape = (1, -1) + (1,) * (x.ndim - 2)
             inv = torch.rsqrt(self.var + self.epsilon)
-            return (x - self.mean.view(shape)) * inv.view(shape) * gamma \
-                + beta
-        axes = (0,) + tuple(range(2, x.ndim))
-        mean = x.mean(dim=axes)
-        var = x.var(dim=axes, correction=0)
-        sigma_b = torch.sqrt(var + self.epsilon)
+            y = (x - self.mean.view(shape)) * inv.view(shape) \
+                * self.gamma.view(shape) + self.beta.view(shape)
+            return F.relu(y) if relu else y
         replay = getattr(_REMAT, "scope", None)
         ra_mean, ra_var, update = (
             (self.mean, self.var, self.update_stats) if replay is None
             else replay.running_stats(self))
-        with torch.no_grad():
-            sigma_m = torch.sqrt(ra_var + self.epsilon)
-            r = sigma_b / sigma_m
-            d = (mean - ra_mean) / sigma_m
-            if update:
-                m = self.momentum
-                self.mean.copy_(m * self.mean + (1.0 - m) * mean)
-                self.var.copy_(m * self.var + (1.0 - m) * var)
-        xhat = (x - mean.view(shape)) / sigma_b.view(shape) * r.view(shape) \
-            + d.view(shape)
-        return xhat * gamma + beta
+        return batch_renorm_train(x, self.gamma, self.beta, ra_mean, ra_var,
+                                  update, self.momentum, self.epsilon, relu)
 
 
 @contextlib.contextmanager
@@ -219,7 +212,8 @@ class GroupNormRef(nn.Module):
         self.gamma = nn.Parameter(torch.ones(channels))
         self.beta = nn.Parameter(torch.zeros(channels))
 
-    def forward(self, x):
+    def forward(self, x, relu: bool = False):
+        """``relu``: a ReLU after the norm."""
         x = x.float()       # statistics in f32 under a bf16 compute dtype
         c = x.shape[1]
         xh = x.movedim(1, -1)
@@ -228,7 +222,8 @@ class GroupNormRef(nn.Module):
         mean = xg.mean(dim=axes, keepdim=True)
         var = xg.var(dim=axes, correction=0, keepdim=True)
         y = ((xg - mean) / torch.sqrt(var + self.epsilon)).reshape(xh.shape)
-        return (y * self.gamma + self.beta).movedim(-1, 1)
+        y = (y * self.gamma + self.beta).movedim(-1, 1)
+        return F.relu(y) if relu else y
 
 
 def gn_groups(channels: int, min_num_g: int = 8, min_chs_per_g: int = 4
@@ -316,7 +311,7 @@ class ConvBlock(nn.Module):
             if bias is not None:
                 y = y + bias.to(dt).view(1, -1, 1, 1)
         if self.norm_name is not None:
-            y = getattr(self, self.norm_name)(y)
+            return getattr(self, self.norm_name)(y, relu=self.relu)
         return F.relu(y) if self.relu else y
 
 

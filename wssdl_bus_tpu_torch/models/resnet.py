@@ -29,8 +29,8 @@ from __future__ import annotations
 import torch.nn.functional as F
 from torch import nn
 
-from wssdl_bus_tpu_torch.models.layers import (ConvBlock, Fc, checkpoint,
-                                               make_norm)
+from wssdl_bus_tpu_torch.models.layers import (BatchRenorm, ConvBlock, Fc,
+                                               checkpoint, make_norm)
 
 RESNET_DEFS = {
     18: ([2, 2, 2, 2], "basic"),
@@ -46,10 +46,9 @@ def feature_channels(depth: int) -> int:
     return 256 if RESNET_DEFS[depth][1] == "basic" else 1024
 
 
-def _norm_relu(norm_name, x, module):
-    if norm_name is not None:
-        x = getattr(module, norm_name)(x)
-    return F.relu(x)
+def _norm_relu(norm, x):
+    """``norm`` (None for none) + ReLU, the ReLU inside the norm's call."""
+    return F.relu(x) if norm is None else norm(x, relu=True)
 
 
 class _Block(nn.Module):
@@ -85,8 +84,8 @@ class _Block(nn.Module):
         if self.preact == "no_preact":
             x_ori = x
         else:
-            pre = _norm_relu("preact_prev" if self.has_norm else None, x,
-                             self)
+            pre = _norm_relu(self.preact_prev if self.has_norm else None,
+                             x)
             # both_preact: the shortcut takes the normalised input
             x_ori = pre if self.preact == "both_preact" else x
             x = pre
@@ -146,9 +145,7 @@ class ResNetBackbone(nn.Module):
         x = F.max_pool2d(x, 3, 2)      # 3x3/2 VALID
         for group in (self.group0, self.group1, self.group2):
             x = group(x, remat)
-        if self.group2_norm is not None:
-            x = self.group2_norm(x)
-        return F.relu(x)
+        return _norm_relu(self.group2_norm, x)
 
 
 class ResNetRCNNHead(nn.Module):
@@ -174,7 +171,24 @@ class ResNetRCNNHead(nn.Module):
         each block of group3 in a checkpoint of its own."""
         # the NCHW view of an NHWC tensor is channels_last memory: no copy
         x = self.group3(roi_feats.permute(0, 3, 1, 2), remat)
-        if self.group3_norm is not None:
-            x = self.group3_norm(x)
-        x = F.relu(x).mean(dim=(2, 3))
+        x = _norm_relu(self.group3_norm, x).mean(dim=(2, 3))
         return self.cls_score(x), self.bbox_pred(x)
+
+
+def betas_without_gradient(model: nn.Module) -> set:
+    """Parameter names of the BatchRenorm betas whose exact gradient is
+    zero: the norms of each residual block's last conv and of its shortcut.
+    Their sum, the block's output, reaches the losses only through other
+    BatchRenorms' inputs (the next block's preact, ``group2_norm``,
+    ``group3_norm``) and the identity shortcuts between them, and a
+    training-mode BatchRenorm's input gradient sums to 0 over each channel;
+    so in floating point these betas' gradients are rounding alone."""
+    names = set()
+    for name, m in model.named_modules():
+        if not isinstance(m, _Block):
+            continue
+        for sub in ("conv2" if m.kind == "basic" else "conv3",
+                    "convshortcut"):
+            if isinstance(getattr(getattr(m, sub), "bn", None), BatchRenorm):
+                names.add(f"{name}.{sub}.bn.beta")
+    return names

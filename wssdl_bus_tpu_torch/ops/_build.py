@@ -22,7 +22,8 @@ import tempfile
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
-SOURCES = ("nms", "roi_pool", "conv1", "conv2_pool", "int8_conv")
+SOURCES = ("nms", "roi_pool", "conv1", "conv2_pool", "int8_conv",
+           "batch_renorm")
 
 # -fmad=false: no contracted multiply-adds anywhere (the NMS keep set and the
 # ROI quantisation must equal the plain PyTorch versions bit for bit); the
