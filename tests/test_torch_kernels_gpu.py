@@ -24,7 +24,8 @@ from wssdl_bus_tpu_torch.ops.int8_conv import int8_conv_plain, pack_weight
 from wssdl_bus_tpu_torch.ops.int8_conv_cuda import int8_conv
 from wssdl_bus_tpu_torch.ops.nms import nms_mask
 from wssdl_bus_tpu_torch.ops.nms_cuda import nms_keep
-from wssdl_bus_tpu_torch.ops.roi_pool import roi_pool_grad, roi_pool_grad_bf16
+from wssdl_bus_tpu_torch.ops.roi_pool import (live_rows, roi_pool_grad,
+                                              roi_pool_grad_bf16)
 from wssdl_bus_tpu_torch.ops.roi_pool_cuda import (forward_plan, roi_pool_fc,
                                                    roi_pool_fc_backward,
                                                    roi_pool_fc_backward_bf16,
@@ -235,16 +236,22 @@ def _cotangent(rng, b, p, d, pattern):
 def test_roi_pool_backward_kernel_matches_plain(cuda, b, p, h, w, c, pattern,
                                                 flavor):
     """Identical dfeat, bit for bit: the kernel adds in the plain
-    version's order.  The map is post-ReLU, so zero ties abound."""
+    version's order.  The map is post-ReLU, so zero ties abound.  The
+    rows its scan lists are counted as the plain rule counts them."""
     rng = np.random.RandomState(p + c)
     feat = np.maximum(rng.randn(b, h, w, c), 0).astype(np.float32)
     feat = torch.from_numpy(feat).to(cuda)
     rois = torch.from_numpy(_rois(rng, b, p, h, w)).to(cuda)
     g = torch.from_numpy(_cotangent(rng, b, p, 49 * c, pattern)).to(cuda)
     before = roi_pool_fc_backward.launches
+    rows, active = roi_pool_fc_backward.rows, \
+        int(roi_pool_fc_backward.rows_active)
     got = roi_pool_fc_backward(feat, rois, g, flavor=flavor)
     torch.cuda.synchronize()
     assert roi_pool_fc_backward.launches == before + 1
+    assert roi_pool_fc_backward.rows == rows + b * p
+    assert int(roi_pool_fc_backward.rows_active) == active + int(
+        live_rows(g.reshape(b, p, 49, c)))
     want = roi_pool_grad(feat, rois, g, flavor=flavor)
     assert torch.equal(got != 0, want != 0)
     assert torch.equal(got, want)

@@ -4,7 +4,8 @@ canvas, 1 supervised + 2 weak images, RPN 32 -> 16 proposals, 16 ROIs an
 image) under a CPU-only profiler records each part of ``train_step``
 nested in it, once a step (``optimizer`` twice: the moments' reset before
 the backward and the update after it), and ``recompute`` once a
-checkpointed block only under remat; the profiler changes no loss, no
+checkpointed block only under remat, and ``stem`` never; a VGG16 step
+records ``stem`` once, inside ``trunk``; the profiler changes no loss, no
 parameter, no running statistic and no moment; with no profiler on,
 ``span`` is one shared null context and opens no range; the stamps are one
 a batch drawn, bounded, ordered and on ``time.time_ns()``'s clock, the
@@ -121,6 +122,26 @@ def test_the_profiler_changes_no_number(runs, remat):
         assert off[i].keys() == on[i].keys()
         for k in off[i]:
             assert torch.equal(off[i][k], on[i][k]), k
+
+
+def test_stem_once_a_vgg16_step_inside_trunk_and_never_on_resnet(runs):
+    for *_, events in runs.values():
+        if events is not None:
+            assert "stem" not in {n for n, *_ in events}
+    torch.set_num_threads(2)
+    torch.manual_seed(0)
+    eng = Engine(build_detector("VGGnet_train", device="cpu"), _cfg(),
+                 CANVAS, device="cpu", seed=5)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        eng.train_step(_batch(0), 1e-3, 0)
+    ranges = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.name().startswith(SPAN_PREFIX):
+            ranges.setdefault(e.name()[len(SPAN_PREFIX):], []).append(
+                (e.start_ns(), e.end_ns()))
+    assert len(ranges["stem"]) == 1
+    (s0, s1), ((t0, t1),) = ranges["stem"][0], ranges["trunk"]
+    assert t0 <= s0 <= s1 <= t1
 
 
 def test_span_without_a_profiler_is_one_null_context():

@@ -35,6 +35,7 @@ from wssdl_bus_tpu_torch.ops.conv2_pool import (conv2_pool_ok, vgg_conv1_1,
                                                 vgg_conv2_pool_plain)
 from wssdl_bus_tpu_torch.ops.conv2_pool_cuda import vgg_conv2_pool
 from wssdl_bus_tpu_torch.utils import resolve_device
+from wssdl_bus_tpu_torch.utils.logging import span
 
 
 class TrunkRPN(nn.Module):
@@ -193,17 +194,18 @@ class FasterRCNN(nn.Module):
         return self.trunk(stem, stem_done=True, remat=remat)
 
     def _stem(self, data, plain_ops: bool):
-        """The pooled conv1 output from a stem kernel, or None when neither
-        gate passes."""
+        """The pooled conv1 output from a stem kernel (in the span ``stem``,
+        as the library stem's stages are), or None when neither gate
+        passes."""
         bb = self.trunk.backbone
         if fused_stem_ok(tuple(data.shape), data.device):
             fn = vgg_stem_plain if plain_ops else vgg_stem_fused
-            with torch.no_grad():
+            with span("stem"), torch.no_grad():
                 return fn(data, *_hwio(bb.conv1_1), *_hwio(bb.conv1_2))
         if conv2_pool_ok(tuple(data.shape), data.device) \
                 and self.compute_dtype is None:
             fn = vgg_conv2_pool_plain if plain_ops else vgg_conv2_pool
-            with torch.no_grad():
+            with span("stem"), torch.no_grad():
                 a1 = vgg_conv1_1(data, *_hwio(bb.conv1_1),
                                  out_dtype=torch.bfloat16)
                 return fn(a1, *_hwio(bb.conv1_2))

@@ -4,7 +4,9 @@ conv1-conv5 with 2x2 VALID max-pools and biased convs without
 normalisation, and the fc6(512) -> dropout -> fc7(512) -> dropout ->
 cls_score / bbox_pred head (dropout rate 0.5 in training, the identity in
 eval mode).  Module names match the JAX package's (and so the reference's
-variable scopes); ``models/convert.py`` maps one onto the other.  Under
+variable scopes); ``models/convert.py`` maps one onto the other.  The stem
+(conv1-conv2 with pool1-2, frozen in training) runs in the span ``stem``
+(``utils/logging.py:span``).  Under
 activation remat (``models/detector.py:FasterRCNN.remat``) each conv stage
 of the trunk runs in a checkpoint of its own, and the head in one, its
 dropout masks drawn first (``models/layers.py:checkpoint``).
@@ -16,6 +18,7 @@ from torch import nn
 
 from wssdl_bus_tpu_torch.models.layers import (ConvBlock, Dropout, Fc,
                                                checkpoint, max_pool)
+from wssdl_bus_tpu_torch.utils.logging import span
 
 # (name, out channels), with a 2x2 max-pool after each stage but the last
 VGG16_STAGES = (
@@ -25,6 +28,7 @@ VGG16_STAGES = (
     (("conv4_1", 512), ("conv4_2", 512), ("conv4_3", 512)),
     (("conv5_1", 512), ("conv5_2", 512), ("conv5_3", 512)),
 )
+STEM_STAGES = 2     # conv1 and conv2 with their pools: the frozen stem
 
 
 class VGG16Backbone(nn.Module):
@@ -47,12 +51,16 @@ class VGG16Backbone(nn.Module):
 
     def forward(self, x, stem_done: bool = False, remat: bool = False):
         """``remat``: each stage (its convs and pool) in a checkpoint of its
-        own."""
-        for s in range(len(VGG16_STAGES)):
-            if stem_done and s == 0:
-                continue
-            x = checkpoint(self._stage, x, s) if remat else self._stage(x, s)
+        own.  The stem's stages that run here run in the span ``stem``."""
+        with span("stem"):
+            for s in range(1 if stem_done else 0, STEM_STAGES):
+                x = self._run_stage(x, s, remat)
+        for s in range(STEM_STAGES, len(VGG16_STAGES)):
+            x = self._run_stage(x, s, remat)
         return x
+
+    def _run_stage(self, x, s: int, remat: bool):
+        return checkpoint(self._stage, x, s) if remat else self._stage(x, s)
 
     def _stage(self, x, s: int):
         for name, _ in VGG16_STAGES[s]:

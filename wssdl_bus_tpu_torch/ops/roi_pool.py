@@ -160,6 +160,13 @@ def active_blocks(grad: torch.Tensor) -> torch.Tensor:
     return (g != 0).any(4).any(2) & ~torch.isnan(g).any(4).any(2)
 
 
+def live_rows(grad: torch.Tensor) -> torch.Tensor:
+    """[B, P, ..., C] cotangent -> 0-d int64: the ROIs with an active
+    channel block (:func:`active_blocks`), the rows the f32 kernel's scan
+    lists and its later passes read."""
+    return active_blocks(grad).any(2).sum()
+
+
 def _pool_grad(feat, rois, g, active, pooled_h, pooled_w, spatial_scale,
                flavor):
     """dfeat of the Pallas backward kernels, op for op.  ``g`` [B, P, Ph,

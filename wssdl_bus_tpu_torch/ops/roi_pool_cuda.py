@@ -30,6 +30,11 @@ it is :func:`roi_pool_fc_plain`, the same function with the plain forward
 (``ops/roi_pool.py:roi_pool``) and the plain backward
 (``ops/roi_pool.py:roi_pool_grad`` / ``roi_pool_grad_bf16``).  Neither
 falls back to the other.
+
+:func:`roi_pool_fc_backward` counts the cotangent rows it is handed in
+``.rows`` and those that carry gradient in ``.rows_active``, a
+:class:`DeviceTally` summed on the device from the count the kernels'
+scratch holds, so that the step makes no host sync for it.
 """
 
 from __future__ import annotations
@@ -39,8 +44,8 @@ import functools
 
 import torch
 
-from wssdl_bus_tpu_torch.ops.roi_pool import (channel_block, roi_pool,
-                                              roi_pool_grad,
+from wssdl_bus_tpu_torch.ops.roi_pool import (channel_block, live_rows,
+                                              roi_pool, roi_pool_grad,
                                               roi_pool_grad_bf16,
                                               rois_with_batch_index)
 
@@ -282,9 +287,30 @@ roi_pool_fc_bf16.launches = 0
 roi_pool_fc_bf16.paths = {"smem": 0, "direct": 0}
 
 
+class DeviceTally:
+    """A count summed where it is made: :meth:`add` queues one in-place add
+    of a count tensor to its device's sum, with no host sync; ``int()``
+    reads the sum over devices (a sync)."""
+
+    def __init__(self):
+        self._sums = {}
+
+    def add(self, count: torch.Tensor) -> None:
+        total = self._sums.get(count.device)
+        if total is None:
+            self._sums[count.device] = count.to(torch.int64, copy=True)
+        else:
+            total.add_(count)
+
+    def __int__(self) -> int:
+        return sum(int(t) for t in self._sums.values())
+
+
 def _launch_backward(feat, rois, grad, pooled_h, pooled_w, spatial_scale,
                      flavor):
-    """dfeat f32 from the backward kernel of ``grad``'s dtype."""
+    """(dfeat f32 from the backward kernel of ``grad``'s dtype, the number
+    of cotangent rows its scan found carrying gradient: a 0-d int32 view
+    of its scratch)."""
     _check_cuda(feat, rois, flavor)
     b, h, w, c = feat.shape
     p = rois.shape[1]
@@ -299,7 +325,7 @@ def _launch_backward(feat, rois, grad, pooled_h, pooled_w, spatial_scale,
         raise ValueError("grad must be contiguous and 16-byte aligned")
     dfeat = torch.empty_like(feat)
     if b == 0:
-        return dfeat
+        return dfeat, torch.zeros((), dtype=torch.int32, device=feat.device)
     # the kernels' scratch (csrc/roi_pool.cu, wssdl_roi_pool_bwd): row flags,
     # the compacted row list, each image's first position, the rows' marks,
     # the map rows' flags and counts, the channel blocks' flags; the argmax
@@ -320,7 +346,8 @@ def _launch_backward(feat, rois, grad, pooled_h, pooled_w, spatial_scale,
     if err != 0:
         raise RuntimeError(f"roi_pool backward kernel launch failed: "
                            f"cudaError {err}")
-    return dfeat
+    # img_start[batch], after the active and list arrays: the listed rows
+    return dfeat, work[2 * b * p + b]
 
 
 def roi_pool_fc_backward(feat: torch.Tensor, rois: torch.Tensor,
@@ -330,20 +357,28 @@ def roi_pool_fc_backward(feat: torch.Tensor, rois: torch.Tensor,
     """dfeat [B, H, W, C] of :func:`roi_pool_fc` for the f32 cotangent
     ``grad`` [B, P, Ph*Pw*C] (or its [B, P, Ph, Pw, C] view): the CUDA
     kernel for CUDA tensors, ``ops/roi_pool.py:roi_pool_grad`` for CPU
-    tensors."""
+    tensors.  Either counts the B * P rows on ``.rows`` and the rows that
+    carry gradient (``ops/roi_pool.py:live_rows``) on ``.rows_active``."""
+    b, p = rois.shape[:2]
     if all(t.device.type == "cpu" for t in (feat, rois, grad)):
-        return roi_pool_grad(feat, rois, grad, pooled_h, pooled_w,
-                             spatial_scale, flavor)
-    if grad.dtype != torch.float32:
-        raise TypeError(f"roi_pool_fc_backward takes an f32 grad, got "
-                        f"{grad.dtype}")
-    dfeat = _launch_backward(feat, rois, grad, pooled_h, pooled_w,
-                             spatial_scale, flavor)
-    roi_pool_fc_backward.launches += 1
+        dfeat = roi_pool_grad(feat, rois, grad, pooled_h, pooled_w,
+                              spatial_scale, flavor)
+        live = live_rows(grad.reshape(b, p, -1, feat.shape[-1]))
+    else:
+        if grad.dtype != torch.float32:
+            raise TypeError(f"roi_pool_fc_backward takes an f32 grad, got "
+                            f"{grad.dtype}")
+        dfeat, live = _launch_backward(feat, rois, grad, pooled_h, pooled_w,
+                                       spatial_scale, flavor)
+        roi_pool_fc_backward.launches += 1
+    roi_pool_fc_backward.rows += b * p
+    roi_pool_fc_backward.rows_active.add(live)
     return dfeat
 
 
 roi_pool_fc_backward.launches = 0
+roi_pool_fc_backward.rows = 0
+roi_pool_fc_backward.rows_active = DeviceTally()
 
 
 def roi_pool_fc_backward_bf16(feat: torch.Tensor, rois: torch.Tensor,
@@ -361,8 +396,8 @@ def roi_pool_fc_backward_bf16(feat: torch.Tensor, rois: torch.Tensor,
     if grad.dtype != torch.bfloat16:
         raise TypeError(f"roi_pool_fc_backward_bf16 takes a bf16 grad, got "
                         f"{grad.dtype}")
-    dfeat = _launch_backward(feat, rois, grad, pooled_h, pooled_w,
-                             spatial_scale, flavor)
+    dfeat, _ = _launch_backward(feat, rois, grad, pooled_h, pooled_w,
+                                spatial_scale, flavor)
     roi_pool_fc_backward_bf16.launches += 1
     return dfeat
 
